@@ -1,0 +1,38 @@
+"""Parameter bridge between the JAX package and the port.
+
+The JAX package's ``IPMData`` holds the same per-bucket arrays as the
+port's; :func:`ipm_data_from_numpy` takes them as numpy arrays (for example
+``np.asarray`` of each JAX array) and returns the port's ``IPMData`` on a
+torch device, so both solvers can be given exactly the same problem.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from scipsdp_tpu_torch.ops.ipm import IPMData
+
+
+def ipm_data_from_numpy(A, C, dimmask, G, h, b_base, nvars, ndim_sdp,
+                        block_of, *, device) -> IPMData:
+    """``A``/``C``/``dimmask`` are per-bucket sequences of (K_t, mp, n_t,
+    n_t) / (K_t, n_t, n_t) / (K_t, n_t) arrays; ``G`` (p, mp), ``h`` (p,)
+    and ``b_base`` (mp,).  Values become float64 tensors on ``device``."""
+
+    def f64(x):
+        return torch.as_tensor(np.array(x, dtype=np.float64),
+                               dtype=torch.float64, device=device)
+
+    return IPMData(
+        A=tuple(f64(a) for a in A),
+        C=tuple(f64(c) for c in C),
+        dimmask=tuple(torch.as_tensor(np.array(d, dtype=bool),
+                                      device=device) for d in dimmask),
+        G=f64(G),
+        h=f64(h),
+        b_base=f64(b_base),
+        nvars=int(nvars),
+        ndim_sdp=int(ndim_sdp),
+        block_of=tuple((int(t), int(k)) for t, k in block_of),
+    )
