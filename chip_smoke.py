@@ -7,31 +7,48 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; no CUDA device means exit 2 before any work.
-2. kernel check: builds ``csrc/cholesky_lanes.cu`` with nvcc, compares the
-   kernel with its plain PyTorch version at the solver's shapes (rtol and
-   atol 2e-4, the bar of the JAX package's lanes-Cholesky test), checks that
-   a non-PD matrix NaNs its own factor only, and times both with CUDA
-   events (median of 25 samples of 10 back-to-back calls after warm-up,
-   the two versions in turns).
-3. main path: batched interior-point relaxation solves through
-   ``ipm_solve`` with the device's resolved settings (probe step rule with
-   the hand-written probe Cholesky, float64 elsewhere): three requests of
-   32 branch-and-bound node boxes on cls_32 (direct, Gamma=1 feasibility
-   probe, Gamma=1e3 penalty solve) and one of 8 boxes on cls_64.  The
-   kernel launch counter is reset just before and read just after.  Each
-   output is checked: children bound no lower than the root, the root's
-   dual point feasible by an independent numpy check, and the same solve
-   through the plain probe gives the same statuses and bounds.  Then each
-   request is timed through both probe routes in turns (6 pairs).  A small
-   instance is also held against the same solve on the CPU (the path the
-   tests hold against the JAX package).
-4. profile: one torch.profiler pass of the direct cls_32 request (device
-   busy time, the ten ops and the ten kernels with the most device time),
-   and the host syncs of one solve by source line (CUDA sync debug mode).
+2. build: the four kernels of ``scipsdp_tpu_torch/csrc`` with nvcc, one
+   process per source, all started together.
+3. kernel checks, each kernel against its plain PyTorch version on the
+   same inputs, timed with CUDA events in turns after warm-up (median of
+   REPS samples of LAUNCHES back-to-back calls: "eager" times, which
+   include the host's launch cost; the df32 kernels also as device time,
+   the LAUNCHES calls replayed from one CUDA graph):
+   ``cholesky_lanes`` at the probe shapes (rtol and atol 2e-4, the bar of
+   the JAX package's lanes-Cholesky test; a non-PD matrix NaNs its own
+   factor only); ``bmm64``, ``contract_short64`` and ``contract_long64``
+   at the refine tier's shapes for cls_32 B=32 (the main path), cls_64 B=8
+   and mkp_10 B=32, and on tests/test_df32.py's inputs (relative error at
+   most 1e-11: max |kernel - plain| / max |plain|).
+4. float64 path: batched interior-point relaxation solves through
+   ``ipm_solve`` with the device's resolved settings (phase32="off", probe
+   step rule with the probe kernel): three requests of 32
+   branch-and-bound node boxes on cls_32 (direct, Gamma=1 feasibility
+   probe, Gamma=1e3 penalty solve) and one of 8 boxes on cls_64.  Each
+   output is checked (every slot OPTIMAL, children bound no lower than the
+   root, the root's dual point feasible by an independent numpy check)
+   and held against the same solve through the plain probe.
+5. refine path: the same four requests with phase32="refine" (the
+   non-fused direction, probe rule, probe kernel): every request must
+   launch all four kernels.  A direct request must match the float64
+   tier's statuses and bounds (2 * gaptol), pass the same checks, and
+   agree with the same request through the plain df32 versions
+   (use_df32="off").  The probe and penalty requests may leave slots
+   FAILED, as the JAX package's refine tier does; those are counted, and
+   their OPTIMAL slots must hold to both references' bounds.
+6. timing: per request the three routes — refine with the kernels, refine
+   with the plain versions, the float64 tier — in turns; then the
+   float64 path's probe kernel against the plain probe.
+7. card against CPU: a small CLS instance, float64 tier and refine tier.
+8. profile: per request and route one torch.profiler pass (device busy
+   time, kernel launches, the ops with the most device time) and the host
+   syncs of one solve by source line (CUDA sync debug mode).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Float32 matmuls run in
-full float32 (TF32 off for matmul and cuDNN).
+The kernel launch counters are set to 0 just before the float64 path and
+the refine path each, and read just after.  The line before the last is a
+JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
+(TF32 off for matmul and cuDNN).
 """
 
 from __future__ import annotations
@@ -51,23 +68,44 @@ import torch
 from scipsdp_tpu_torch import _build
 from scipsdp_tpu_torch.models.families import cardinality_least_squares
 from scipsdp_tpu_torch.models.problem import densify
-from scipsdp_tpu_torch.ops import kernels
+from scipsdp_tpu_torch.ops import df32, kernels
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
 from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
 
-# (leading shape, n) of the matrix stacks the kernel is checked and timed
-# at; (32, 10) and (8, 10) are the stacked probe ladders of the main path
-# (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
-KERNEL_SHAPES = [((3,), 5), ((16,), 43), ((130,), 17), ((1,), 64),
-                 ((384,), 65), ((32, 10), 65), ((320,), 97), ((320,), 129),
-                 ((8, 10), 129), ((14720,), 10), ((4,), 300)]
-MAIN_SHAPE = ((32, 10), 65)
-KERNEL_TOL = 2e-4
+KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
+    "cholesky_lanes": (kernels.cholesky_lanes,
+                       "scipsdp_tpu/ops/pallas_kernels.py:337"),
+    "bmm64": (df32.bmm64, "scipsdp_tpu/ops/df32.py:151"),
+    "contract_short64": (df32.contract_short64,
+                         "scipsdp_tpu/ops/df32.py:275"),
+    "contract_long64": (df32.contract_long64, "scipsdp_tpu/ops/df32.py:345"),
+}
+PLAIN = {"bmm64": df32.bmm64_plain,
+         "contract_short64": df32.contract_short64_plain,
+         "contract_long64": df32.contract_long64_plain}
+# (leading shape, n) of the matrix stacks cholesky_lanes is checked and
+# timed at; (32, 10) and (8, 10) are the stacked probe ladders of the main
+# path (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
+CHOL_SHAPES = [((3,), 5), ((16,), 43), ((130,), 17), ((1,), 64),
+               ((384,), 65), ((32, 10), 65), ((320,), 97), ((320,), 129),
+               ((8, 10), 129), ((14720,), 10), ((4,), 300)]
+CHOL_MAIN = ((32, 10), 65)
+CHOL_TOL = 2e-4
+DF32_TOL = 1e-11
+# the refine tier's shapes per instance: (label, mp, K n^2, LP rows P, B,
+# K, n); cls_32 B=32 is the main path
+DF32_SHAPES = [("cls_32 B=32", 66, 4225, 65, 32, 1, 65),
+               ("cls_64 B=8", 130, 16641, 129, 8, 1, 129),
+               ("mkp_10 B=32", 46, 100, 1, 32, 1, 10)]
+DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
+             "contract_short64": "cls_32 B=32 W^T v",
+             "contract_long64": "cls_32 B=32 W u"}
 GAMMA = 1e3
 REPS = 25
 LAUNCHES = 10
-SOLVE_PAIRS = 6
+PROBE_PAIRS = 3      # float64 path: probe kernel vs plain probe
+ROUTE_ROUNDS = 8     # refine kernels / refine plain / float64, in turns
 
 
 def log(tag: str, **kw) -> None:
@@ -81,31 +119,90 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
+def counts() -> dict:
+    return {k: w.launches for k, (w, _) in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for w, _ in KERNELS.values():
+        w.launches = 0
+
+
 def spd_stack(rng, N: int, n: int) -> np.ndarray:
     a = rng.standard_normal((N, n, n))
     return np.einsum("bij,bkj->bik", a, a) + n * np.eye(n)
 
 
-def event_ms(fn, A) -> float:
+def event_ms(fn, args) -> float:
     """Device time per call over LAUNCHES back-to-back calls."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(LAUNCHES):
-        fn(A)
+        fn(*args)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / LAUNCHES
 
 
-def kernel_phase(device) -> dict:
-    """Build, check and time cholesky_lanes against its plain version."""
+def graph_pair(fn, plain, args):
+    """Device ms per call of ``fn`` and ``plain``: LAUNCHES calls of each
+    captured in one CUDA graph, the two graphs replayed in turns (median of
+    REPS replays), so no host launch cost enters."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):        # warm-up before capture
+        for _ in range(2):
+            fn(*args)
+            plain(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for f in (fn, plain):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(LAUNCHES):
+                f(*args)
+        graphs.append(g)
+    times = ([], [])
+    for _ in range(REPS):
+        for g, acc in zip(graphs, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end) / LAUNCHES)
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def time_pair(fn, plain, args):
+    """Median ms of ``fn`` and ``plain`` on ``args``, measured in turns."""
+    for _ in range(3):
+        fn(*args)
+        plain(*args)
+    ms, pms = [], []
+    for _ in range(REPS):
+        ms.append(event_ms(fn, args))
+        pms.append(event_ms(plain, args))
+    return float(np.median(ms)), float(np.median(pms))
+
+
+def build_phase() -> float:
     t0 = time.perf_counter()
-    _build.load("cholesky_lanes")
-    build_s = time.perf_counter() - t0
+    _build.build(*KERNELS)
+    seconds = time.perf_counter() - t0
+    log("build", seconds=seconds, kernels=list(KERNELS),
+        logs={k: (_build.library_path(k).parent / "build.log")
+              .read_text()[-1500:] for k in KERNELS})
+    return seconds
+
+
+def cholesky_phase(device) -> dict:
+    """Check and time cholesky_lanes against its plain version."""
     rng = np.random.default_rng(0)
     worst, main_times = 0.0, None
-    for lead, n in KERNEL_SHAPES:
+    for lead, n in CHOL_SHAPES:
         N = int(np.prod(lead))
         A = torch.as_tensor(spd_stack(rng, N, n).reshape(lead + (n, n)),
                             dtype=torch.float32, device=device)
@@ -113,7 +210,7 @@ def kernel_phase(device) -> dict:
         Lp = kernels.cholesky_lanes_plain(A)
         torch.cuda.synchronize()
         err = float((L - Lp).abs().max())
-        torch.testing.assert_close(L, Lp, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+        torch.testing.assert_close(L, Lp, rtol=CHOL_TOL, atol=CHOL_TOL)
         if not bool((torch.triu(L, diagonal=1) == 0).all()):
             raise AssertionError(f"nonzero above the diagonal at {(N, n)}")
         # one indefinite matrix: NaN in its own factor and nowhere else
@@ -127,24 +224,111 @@ def kernel_phase(device) -> dict:
         if not bool((nan_mat == expect).all()):
             raise AssertionError(f"NaN pattern wrong at {(N, n)}: "
                                  f"{nan_mat.nonzero().flatten().tolist()}")
-        for _ in range(3):
-            kernels.cholesky_lanes(A)
-            kernels.cholesky_lanes_plain(A)
-        ms, plain = [], []
-        for _ in range(REPS):
-            ms.append(event_ms(kernels.cholesky_lanes, A))
-            plain.append(event_ms(kernels.cholesky_lanes_plain, A))
-        t, tp = float(np.median(ms)), float(np.median(plain))
+        t, tp = time_pair(kernels.cholesky_lanes,
+                          kernels.cholesky_lanes_plain, (A,))
         log("kernel", name="cholesky_lanes", shape=list(lead) + [n, n],
             max_abs_err=err, ms=t, plain_ms=tp, nan_own_matrix_only=True)
         worst = max(worst, err)
-        if (lead, n) == MAIN_SHAPE:
+        if (lead, n) == CHOL_MAIN:
             main_times = (t, tp)
-    log("kernel_build", seconds=build_s,
-        log=(_build.library_path("cholesky_lanes").parent
-             / "build.log").read_text()[-2000:])
     return {"max_abs_err": worst, "ms": main_times[0],
             "plain_ms": main_times[1]}
+
+
+def df32_cases(device):
+    """(kernel, label, args) at the refine tier's shapes, and
+    tests/test_df32.py's inputs (badly scaled products, the X S
+    near-central-path cancellation)."""
+    rng = np.random.default_rng(1)
+
+    def t(x, dt=torch.float64):
+        return torch.as_tensor(x, dtype=dt, device=device)
+
+    def normal(*shape):
+        return rng.standard_normal(shape)
+
+    cases = []
+    for label, mp, F, P, B, K, n in DF32_SHAPES:
+        blk = (B, K, n, n)
+        X = t(normal(*blk))
+        cases.append(("bmm64", f"{label} X Rp", (X, t(normal(*blk)))))
+        # (Rc - X Rp) S^-1 with the float32-valued S^-1
+        cases.append(("bmm64", f"{label} Psi S^-1",
+                      (X, t(normal(*blk), torch.float32))))
+        A_flat = t(normal(mp, F))
+        Wall = t(normal(B, mp, F + P), torch.float32)
+        Gall = t(normal(B, P, mp))
+        dy = t(normal(B, mp))
+        cases += [
+            ("contract_short64", f"{label} A(dy)", (A_flat, dy)),
+            ("contract_short64", f"{label} W^T v", (Wall, dy)),
+            ("contract_long64", f"{label} A*(Psi)", (A_flat, t(normal(B, F)))),
+            ("contract_long64", f"{label} W u", (Wall, t(normal(B, F + P)))),
+            ("contract_long64", f"{label} G dy", (Gall, dy)),
+            ("contract_long64", f"{label} G^T w",
+             (Gall.transpose(1, 2).contiguous(), t(normal(B, P)))),
+        ]
+    cases.append(("bmm64", "1472 x n=10", (t(normal(1472, 10, 10)),
+                                           t(normal(1472, 10, 10)))))
+    # tests/test_df32.py inputs
+    r0 = np.random.default_rng(0)
+    n = 24
+    A = r0.standard_normal((n, n)) * np.exp(r0.uniform(-6, 6, (n, n)))
+    Bm = r0.standard_normal((n, n))
+    Q, _ = np.linalg.qr(r0.standard_normal((n, n)))
+    lam = np.exp(r0.uniform(-3, 3, n))
+    X = (Q * lam) @ Q.T
+    S = (Q * (1e-7 / lam)) @ Q.T
+    cases.append(("bmm64", "test_df32 scaled A B", (t(A[None]), t(Bm[None]))))
+    cases.append(("bmm64", "test_df32 X S cancellation",
+                  (t(X[None]), t(S[None]))))
+    r2 = np.random.default_rng(2)
+    M = r2.standard_normal((34, 200)) * 1e3
+    cases.append(("contract_short64", "test_df32 short",
+                  (t(M), t(r2.standard_normal((1, 34))))))
+    r3 = np.random.default_rng(3)
+    M = r3.standard_normal((34, 777)) * np.exp(r3.uniform(-4, 4, (34, 777)))
+    cases.append(("contract_long64", "test_df32 long",
+                  (t(M), t(r3.standard_normal((1, 777))))))
+    r9 = np.random.RandomState(9)
+    M = r9.randn(200, 65, 300)
+    cases.append(("contract_short64", "test_df32 lanes (200, 65, 300)",
+                  (t(M), t(r9.randn(200, 65)))))
+    cases.append(("contract_long64", "test_df32 lanes (200, 65, 300)",
+                  (t(M), t(r9.randn(200, 300)))))
+    return cases
+
+
+def df32_phase(device) -> dict:
+    """Check and time the three df32 kernels against their plain
+    versions; returns the main-path entry of each."""
+    out = {}
+    for name, label, args in df32_cases(device):
+        wrapper = KERNELS[name][0]
+        before = wrapper.launches
+        got = wrapper(*args)
+        want = PLAIN[name](*args)
+        torch.cuda.synchronize()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{name}: no launch counted at {label}")
+        if got.dtype != torch.float64 or got.shape != want.shape:
+            raise AssertionError(f"{name} {label}: {got.dtype} "
+                                 f"{tuple(got.shape)} vs {tuple(want.shape)}")
+        err = float((got - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-300)
+        if not rel <= DF32_TOL:
+            raise AssertionError(f"{name} {label}: relative error {rel}")
+        t, tp = graph_pair(wrapper, PLAIN[name], args)
+        te, tpe = time_pair(wrapper, PLAIN[name], args)
+        log("kernel", name=name, shape=label,
+            args=[list(a.shape) + [str(a.dtype)[6:]] for a in args],
+            max_abs_err=err, max_rel_err=rel, ms=t, plain_ms=tp,
+            eager_ms=te, plain_eager_ms=tpe)
+        if label == DF32_MAIN[name]:
+            out[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": t,
+                         "plain_ms": tp, "eager_ms": te,
+                         "plain_eager_ms": tpe}
+    return out
 
 
 def node_boxes(prob, B: int, nfeat: int, rng):
@@ -176,6 +360,22 @@ def request(prob, lb, ub, mode: str):
     return b, lbp, ubp
 
 
+def make_cases(device):
+    cases = []
+    rng = np.random.default_rng(0)
+    for label, args, B, modes in (
+            ("cls_32", (32, 64, 8), 32, ("direct", "probe", "penalty")),
+            ("cls_64", (64, 128, 12), 8, ("direct",))):
+        prob = cardinality_least_squares(*args, seed=5)
+        dense = densify(prob)
+        data = build_ipm_data(dense, device)
+        lb, ub = node_boxes(prob, B, args[0], rng)
+        for mode in modes:
+            cases.append((f"{label}/{mode}", dense, data,
+                          request(prob, lb, ub, mode), mode == "direct"))
+    return cases
+
+
 def timed(data, req, settings):
     """Wall time of one solve, between two device synchronizations."""
     torch.cuda.synchronize()
@@ -200,119 +400,193 @@ def dual_violation(dense, y: np.ndarray, lb, ub) -> float:
     return worst / scale
 
 
-def check_solve(label, dense, out, ref, req, gaptol, feastol, direct):
+def check_solve(label, dense, out, req, gaptol, feastol, direct):
+    """Every slot OPTIMAL with finite y; for a direct solve, children bound
+    no lower than the root and the root's dual point is feasible."""
     st = out.status.cpu().numpy()
-    dobj = out.dobj.cpu().numpy()
-    viol = None
-    opt = st == int(SolverResultStatus.OPTIMAL)
-    if not opt.all():
+    if not (st == int(SolverResultStatus.OPTIMAL)).all():
         raise AssertionError(f"{label}: statuses {collections.Counter(st)}")
     if not np.isfinite(out.y.cpu().numpy()).all():
         raise AssertionError(f"{label}: non-finite y")
-    if direct:
-        root = dobj[0]
-        floor = root - 2 * gaptol * (1 + abs(root))
-        if not (dobj >= floor).all():
-            raise AssertionError(f"{label}: child bound below root {root}")
-        y = out.y[0, :dense.nvars].cpu().numpy()
-        viol = dual_violation(dense, y, req[1][0, :-1], req[2][0, :-1])
-        if viol > 10 * feastol:
-            raise AssertionError(f"{label}: root dual point infeasible "
-                                 f"by {viol}")
-    st_ref = ref.status.cpu().numpy()
-    d_ref = ref.dobj.cpu().numpy()
+    if not direct:
+        return None
+    dobj = out.dobj.cpu().numpy()
+    root = dobj[0]
+    floor = root - 2 * gaptol * (1 + abs(root))
+    if not (dobj >= floor).all():
+        raise AssertionError(f"{label}: child bound below root {root}")
+    y = out.y[0, :dense.nvars].cpu().numpy()
+    viol = dual_violation(dense, y, req[1][0, :-1], req[2][0, :-1])
+    if viol > 10 * feastol:
+        raise AssertionError(f"{label}: root dual point infeasible by {viol}")
+    return viol
+
+
+def agree(label, out, ref, gaptol, what):
+    """Same statuses, dobj within 2 * gaptol * (1 + |dobj|), iterations
+    within 3."""
+    st, st_ref = out.status.cpu().numpy(), ref.status.cpu().numpy()
     if not (st == st_ref).all():
-        raise AssertionError(f"{label}: statuses differ from plain probe")
-    dev = np.abs(dobj - d_ref) / (1 + np.abs(d_ref))
+        raise AssertionError(f"{label}: statuses differ from {what}")
+    d, d_ref = out.dobj.cpu().numpy(), ref.dobj.cpu().numpy()
+    dev = np.abs(d - d_ref) / (1 + np.abs(d_ref))
     if not (dev <= 2 * gaptol).all():
-        raise AssertionError(f"{label}: dobj differs from plain probe by "
+        raise AssertionError(f"{label}: dobj differs from {what} by "
                              f"{dev.max()}")
     if abs(out.iters - ref.iters) > 3:
-        raise AssertionError(f"{label}: {out.iters} vs {ref.iters} iters")
-    return float(dev.max()), viol
+        raise AssertionError(f"{label}: {out.iters} vs {ref.iters} iters "
+                             f"({what})")
+    return float(dev.max())
 
 
-def main_path(device, settings):
-    """Drive the solver's main path once per request (the first solve of
-    each, so it includes warm-up); returns the kernel launches made, the
-    requests and their outputs."""
-    cases = []
-    rng = np.random.default_rng(0)
-    for label, args, B, modes in (
-            ("cls_32", (32, 64, 8), 32, ("direct", "probe", "penalty")),
-            ("cls_64", (64, 128, 12), 8, ("direct",))):
-        prob = cardinality_least_squares(*args, seed=5)
-        dense = densify(prob)
-        data = build_ipm_data(dense, device)
-        lb, ub = node_boxes(prob, B, args[0], rng)
-        for mode in modes:
-            cases.append((f"{label}/{mode}", dense, data,
-                          request(prob, lb, ub, mode), mode == "direct"))
-
-    kernels.cholesky_lanes.launches = 0
-    outs = []
-    for label, dense, data, req, direct in cases:
-        before = kernels.cholesky_lanes.launches
+def drive(cases, settings, need) -> tuple:
+    """One solve per request (the first of each, so it includes warm-up)
+    with every launch counter set to 0 just before and read just after;
+    each request must launch every kernel in ``need``."""
+    reset_counts()
+    outs, per_request = [], []
+    for label, _, data, req, _ in cases:
+        before = counts()
         outs.append(ipm_solve(data, *req, settings=settings))
         torch.cuda.synchronize()
-        if kernels.cholesky_lanes.launches == before:
-            raise AssertionError(f"{label}: probe kernel never launched")
-    return kernels.cholesky_lanes.launches, cases, outs
+        delta = {k: v - before[k] for k, v in counts().items()}
+        missing = [k for k in need if delta[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: {missing}")
+        per_request.append(delta)
+    return counts(), per_request, outs
 
 
-def compare_phase(cases, outs, settings) -> None:
-    """Check each main-path output, hold it against the same solve through
-    the plain probe, and time both routes in turns (kernel first in even
-    pairs, plain first in odd ones)."""
+def f64_phase(cases, settings):
+    """The float64 tier (phase32="off") with the probe kernel."""
+    launches, per_request, outs = drive(cases, settings, ["cholesky_lanes"])
     plain = dataclasses.replace(settings, use_lanes_chol=False)
-    for (label, dense, data, req, direct), out in zip(cases, outs):
+    for (label, dense, data, req, direct), out, n in zip(cases, outs,
+                                                         per_request):
+        viol = check_solve(label, dense, out, req, settings.gaptol,
+                           settings.feastol, direct)
         ref = ipm_solve(data, *req, settings=plain)
-        dev, viol = check_solve(label, dense, out, ref, req, settings.gaptol,
-                                settings.feastol, direct)
+        dev = agree(label, out, ref, settings.gaptol, "the plain probe")
+        log("f64_solve", request=label, B=int(out.status.shape[0]),
+            iters=out.iters, plain_probe_iters=ref.iters, launches=n,
+            max_rel_dobj_vs_plain_probe=dev, root_dobj=float(out.dobj[0]),
+            root_dual_violation=viol)
+    log("f64_path", launches=launches)
+    return launches, outs
+
+
+def bounds_agree(label, out, ref, gaptol, what) -> tuple:
+    """Slots OPTIMAL in both solves bound within 2 * gaptol * (1 + |dobj|);
+    every slot of ``out`` is OPTIMAL or FAILED (no bound: the JAX package
+    hands such a slot to its recovery ladder).  Returns the number of
+    slots whose status differs and the largest relative deviation."""
+    st, st_ref = out.status.cpu().numpy(), ref.status.cpu().numpy()
+    opt = int(SolverResultStatus.OPTIMAL)
+    if not np.isin(st, [opt, int(SolverResultStatus.FAILED)]).all():
+        raise AssertionError(f"{label}: statuses {collections.Counter(st)}")
+    both = (st == opt) & (st_ref == opt)
+    d, d_ref = out.dobj.cpu().numpy()[both], ref.dobj.cpu().numpy()[both]
+    dev = np.abs(d - d_ref) / (1 + np.abs(d_ref))
+    if not (dev <= 2 * gaptol).all():
+        raise AssertionError(f"{label}: dobj differs from {what} by "
+                             f"{dev.max()}")
+    return int((st != st_ref).sum()), float(dev.max(initial=0.0))
+
+
+def refine_phase(cases, rset, f64_outs):
+    """The refine tier: every request launches all four kernels.  A direct
+    request must converge every slot, as the float64 tier does, with the
+    same bounds, the same checks, and the same statuses and iterations
+    (within 3) through the plain df32 route.  The Gamma=1 probe and the
+    Gamma=1e3 penalty request may leave slots FAILED (the JAX package's
+    refine tier, on the CPU, fails 18 of the penalty request's 32 slots):
+    their FAILED slots are counted, their OPTIMAL slots hold to the float64
+    tier's and the plain route's bounds."""
+    launches, per_request, outs = drive(cases, rset, list(KERNELS))
+    plain = dataclasses.replace(rset, use_df32="off")
+    for (label, dense, data, req, direct), out, f64, n in zip(
+            cases, outs, f64_outs, per_request):
+        ref = ipm_solve(data, *req, settings=plain)
+        viol = None
+        if direct:
+            viol = check_solve(label, dense, out, req, rset.gaptol,
+                               rset.feastol, direct)
+            agree(label, out, ref, rset.gaptol, "the plain df32 route")
+        diff64, dev64 = bounds_agree(label, out, f64, rset.gaptol,
+                                     "the float64 tier")
+        diffp, devp = bounds_agree(label, out, ref, rset.gaptol,
+                                   "the plain df32 route")
+        failed = int(SolverResultStatus.FAILED)
+        log("refine_solve", request=label, B=int(out.status.shape[0]),
+            iters=out.iters, f64_iters=out.f64_iters,
+            failed=int((out.status == failed).sum()),
+            plain_route_iters=ref.iters, plain_route_f64_iters=ref.f64_iters,
+            plain_route_failed=int((ref.status == failed).sum()),
+            f64_tier_iters=f64.iters, launches=n,
+            status_diff_vs_f64_tier=diff64, status_diff_vs_plain_route=diffp,
+            max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_plain_route=devp,
+            root_dobj=float(out.dobj[0]), root_dual_violation=viol)
+    log("refine_path", launches=launches)
+    return launches
+
+
+def timing_phase(cases, routes) -> None:
+    """Wall per request for each route, the routes in turns (the order
+    rotates every round)."""
+    names = list(routes)
+    for label, _, data, req, _ in cases:
+        walls = {k: [] for k in names}
+        for r in range(ROUTE_ROUNDS):
+            order = names[r % len(names):] + names[:r % len(names)]
+            if r % 2:
+                order = order[::-1]
+            for k in order:
+                walls[k].append(timed(data, req, routes[k]))
+        log("timing", request=label, rounds=ROUTE_ROUNDS,
+            wall_s_median={k: float(np.median(v)) for k, v in walls.items()},
+            first_faster_rounds={f"{a}<{b}": sum(
+                x < y for x, y in zip(walls[a], walls[b]))
+                for a, b in zip(names, names[1:] + names[:1])},
+            wall_s=walls)
+
+
+def probe_timing_phase(cases, settings) -> None:
+    """The float64 path: probe kernel against the plain probe, in turns."""
+    plain = dataclasses.replace(settings, use_lanes_chol=False)
+    for label, _, data, req, _ in cases:
         walls = {"kernel": [], "plain": []}
-        for r in range(SOLVE_PAIRS):
+        for r in range(PROBE_PAIRS):
             order = ("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")
             for route in order:
                 walls[route].append(timed(
                     data, req, settings if route == "kernel" else plain))
-        st = collections.Counter(int(s) for s in out.status.cpu().numpy())
-        log("solve", request=label, B=int(out.status.shape[0]),
-            status={SolverResultStatus(k).name: v for k, v in st.items()},
-            iters=out.iters, plain_probe_iters=ref.iters,
-            wall_s_median=float(np.median(walls["kernel"])),
+        log("f64_probe_timing", request=label,
+            kernel_wall_s_median=float(np.median(walls["kernel"])),
             plain_probe_wall_s_median=float(np.median(walls["plain"])),
-            kernel_faster_pairs=sum(k < p for k, p in zip(walls["kernel"],
-                                                          walls["plain"])),
-            wall_s=walls["kernel"], plain_probe_wall_s=walls["plain"],
-            max_rel_dobj_vs_plain=dev, root_dobj=float(out.dobj[0]),
-            root_dual_violation=viol)
+            wall_s=walls)
 
 
-def cpu_reference(device, settings):
+def cpu_reference(device, settings, rset) -> None:
     """A small instance on the card against the same solve on the CPU
-    with the plain probe (the path the tests hold against JAX)."""
+    (the path the tests hold against JAX), float64 tier and refine tier."""
     prob = cardinality_least_squares(8, 16, 3, seed=1)
     dense = densify(prob)
     lb, ub = node_boxes(prob, 8, 8, np.random.default_rng(1))
     req = request(prob, lb, ub, "direct")
-    cpu = dataclasses.replace(settings, use_lanes_chol=False)
-    ref = ipm_solve(build_ipm_data(dense, "cpu"), *req, settings=cpu)
-    out = ipm_solve(build_ipm_data(dense, device), *req, settings=settings)
-    st, st_ref = out.status.cpu().numpy(), ref.status.numpy()
-    dev = np.abs(out.dobj.cpu().numpy() - ref.dobj.numpy()) \
-        / (1 + np.abs(ref.dobj.numpy()))
-    if not ((st == st_ref).all() and (dev <= 2 * settings.gaptol).all()):
-        raise AssertionError(f"small CLS: card {st} vs cpu {st_ref}, "
-                             f"rel dobj {dev.max()}")
-    log("cpu_reference", instance="cls_8x16", B=8, iters=out.iters,
-        cpu_iters=ref.iters, max_rel_dobj=float(dev.max()))
+    cpu_data, dev_data = build_ipm_data(dense, "cpu"), build_ipm_data(dense,
+                                                                      device)
+    for tier, s in (("off", settings), ("refine", rset)):
+        ref = ipm_solve(cpu_data, *req, settings=s)
+        out = ipm_solve(dev_data, *req, settings=s)
+        dev = agree(f"small CLS {tier}", out, ref, s.gaptol, "the CPU solve")
+        log("cpu_reference", instance="cls_8x16", B=8, phase32=tier,
+            iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
 
-def profile_phase(case, settings) -> None:
+def profile_one(label, data, req, settings, route) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, data, req, _ = case
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -329,26 +603,24 @@ def profile_phase(case, settings) -> None:
     kern = [e for e in evts if e.device_type == DeviceType.CUDA]
     ops = [e for e in evts if e.device_type != DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern)
-    log("profile", request="cls_32/direct", iters=out.iters,
-        profiled_wall_s=wall, device_busy_us=busy,
-        kernel_launches=sum(e.count for e in kern),
-        top_ops=[{"op": e.key, "self_device_us": dev_us(e), "calls": e.count}
-                 for e in ops[:10]],
-        top_kernels=[{"kernel": e.key[:90], "device_us": dev_us(e),
-                      "calls": e.count} for e in kern[:10]])
 
     # host syncs of one solve (the loop reads the done mask once per
-    # iteration)
+    # iteration); each warning points at the Python line that synced
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        out = ipm_solve(data, *req, settings=settings)
+        ipm_solve(data, *req, settings=settings)
         torch.cuda.set_sync_debug_mode("default")
-    # each warning points at the Python line that issued the syncing op
     syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
              if "synchronizing CUDA operation" in str(w.message)]
-    log("syncs", request="cls_32/direct", iters=out.iters, count=len(syncs),
-        sites=sorted(collections.Counter(syncs).items()))
+    log("profile", request=label, route=route, iters=out.iters,
+        f64_iters=out.f64_iters, profiled_wall_s=wall, device_busy_us=busy,
+        kernel_launches=sum(e.count for e in kern), host_syncs=len(syncs),
+        sync_sites=sorted(collections.Counter(syncs).items()),
+        top_ops=[{"op": e.key, "self_device_us": dev_us(e), "calls": e.count}
+                 for e in ops[:10]],
+        top_kernels=[{"kernel": e.key[:90], "device_us": dev_us(e),
+                      "calls": e.count} for e in kern[:8]])
 
 
 def main() -> int:
@@ -365,20 +637,39 @@ def main() -> int:
         count=torch.cuda.device_count(), nvidia_smi=card)
     settings = resolve_backend_autos(Settings(), device).ipm
     settings = dataclasses.replace(settings, max_iters=100)
+    rset = dataclasses.replace(settings, phase32="refine",
+                               fused_direction="off", step_rule="probe",
+                               use_lanes_chol=True)
     log("settings", step_rule=settings.step_rule,
-        use_lanes_chol=settings.use_lanes_chol, phase32=settings.phase32)
+        use_lanes_chol=settings.use_lanes_chol, phase32=settings.phase32,
+        refine=dataclasses.asdict(rset))
 
-    kern = kernel_phase(device)
-    launches, cases, outs = main_path(device, settings)
-    compare_phase(cases, outs, settings)
-    cpu_reference(device, settings)
-    profile_phase(cases[0], settings)
+    build_phase()
+    kern = {"cholesky_lanes": cholesky_phase(device), **df32_phase(device)}
+    cases = make_cases(device)
+    f64_launches, f64_outs = f64_phase(cases, settings)
+    refine_launches = refine_phase(cases, rset, f64_outs)
+    timing_phase(cases, {"refine_kernels": rset,
+                         "refine_plain": dataclasses.replace(
+                             rset, use_df32="off"),
+                         "f64": settings})
+    probe_timing_phase(cases, settings)
+    cpu_reference(device, settings, rset)
+    for label, _, data, req, _ in cases:
+        for route, s in (("refine_kernels", rset),
+                         ("refine_plain",
+                          dataclasses.replace(rset, use_df32="off")),
+                         ("f64", settings)):
+            profile_one(label, data, req, s, route)
 
     print(json.dumps({"kernels": [{
-        "name": "cholesky_lanes", "route": "cuda",
-        "source": "scipsdp_tpu_torch/csrc/cholesky_lanes.cu",
-        "replaces": "scipsdp_tpu/ops/pallas_kernels.py:337",
-        "launches": launches, **kern}]}))
+        "name": name, "route": "cuda",
+        "source": f"scipsdp_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": f64_launches[name] + refine_launches[name],
+        "launches_by_path": {"f64": f64_launches[name],
+                             "refine": refine_launches[name]},
+        **kern[name]} for name, (_, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``build/scipsdp_tpu_torch/<hash>/lib<name>.so`` beside the package (the
 hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  Sources come only from this package; nothing is
+loaded with ``ctypes``.  :func:`build` compiles several sources at once,
+one nvcc process each.  Sources come only from this package; nothing is
 fetched.  A failed build raises with nvcc's output.  The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept in ``build.log``
 beside the library.
@@ -45,19 +46,36 @@ def library_path(name: str) -> Path:
     return BUILD_ROOT / key.hexdigest()[:16] / f"lib{name}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` unless its library exists, then load it."""
-    out = library_path(name)
-    if not out.is_file():
+def build(*names: str) -> None:
+    """Build every named ``csrc/<name>.cu`` whose library is missing: one
+    nvcc process per source, all started together, each waited for; raises
+    with the output of every build that failed."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out.parent / "build.log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        log, _ = proc.communicate()
+        (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{name}.cu:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+            failed.append(f"nvcc failed ({proc.returncode}) building "
+                          f"{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` unless its library exists, then load it."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

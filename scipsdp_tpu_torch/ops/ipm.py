@@ -1,9 +1,11 @@
 """Batched primal-dual interior-point SDP solver (PyTorch).
 
 Counterpart of ``scipsdp_tpu/ops/ipm.py`` in its float64 configuration
-(``phase32="off"``): one solve over a *batch* of SDPs that share problem
-data (A, A_0, LP rows) and differ per instance in bounds, objective and
-cuts — the shape of branch-and-bound node relaxations.
+(``phase32="off"``) and its "refine" tier (``phase32="refine"``: float32
+factorizations, float64 assembly and refined Schur solves, with the exact
+contractions of ``ops/df32.py``): one solve over a *batch* of SDPs that
+share problem data (A, A_0, LP rows) and differ per instance in bounds,
+objective and cuts — the shape of branch-and-bound node relaxations.
 
 Problem form (the reference dual form, sdpi.c:37-58), per batch instance:
 
@@ -28,7 +30,9 @@ batch runs until every instance is done.  Blocks are grouped into size
 buckets, each padded only to its bucket's maximum.
 
 The iteration loop is a Python loop: it reads ``all(done)`` on the host
-once per iteration (one device sync per iteration).  Updates are guarded
+once per iteration (one device sync per iteration; in the refine tier the
+choice of tier for the next iteration comes back in the same read).
+Updates are guarded
 with ``torch.where`` (never a multiply by a 0/1 mask: 0 * NaN would poison
 frozen instances), and every Cholesky returns NaN for a matrix that is not
 positive definite, which the solver reads as "not PSD".
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 
 from scipsdp_tpu_torch.models.problem import DenseSDPData
-from scipsdp_tpu_torch.ops import kernels
+from scipsdp_tpu_torch.ops import df32, kernels
 from scipsdp_tpu_torch.ops.eigen import (
     cholesky,
     gersh_step_from_ymat,
@@ -72,6 +76,11 @@ def _wfeat_flat(LxOp, A_t, Lsinv_t, B, mp):
     P = torch.einsum("xkba,kjbc->xkjac", LxOp, A_t)
     W = torch.einsum("xkjab,xkcb->xkjac", P, Lsinv_t)
     return W.permute(0, 2, 1, 3, 4).reshape(B, mp, -1)
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched product of (B, K, n, n) block stacks."""
+    return torch.einsum("xkab,xkbc->xkac", a, b)
 
 
 def _tril_inv(L: torch.Tensor) -> torch.Tensor:
@@ -312,6 +321,8 @@ class IPMState(NamedTuple):
     failed: torch.Tensor     # (B,)
     best_merit: torch.Tensor  # (B,) best progress merit seen
     stall: torch.Tensor       # (B,) iterations without progress
+    nan32: torch.Tensor       # (B,) refine-tier NaN: repair in float64 next
+    esc: torch.Tensor         # (B,) stalled in the refine tier: float64 on
 
 
 class SolveOutput(NamedTuple):
@@ -327,6 +338,9 @@ class SolveOutput(NamedTuple):
     xl: torch.Tensor         # (B, P) row primal multipliers (LP ++ cuts)
     xlb: torch.Tensor        # (B, mp) lower-bound multipliers
     xub: torch.Tensor        # (B, mp) upper-bound multipliers
+    f64_iters: int           # iterations that ran the float64 tier (all of
+                             # them with phase32="off"; in the refine tier
+                             # the nan32 repairs, escalations and handoff)
 
 
 class EvalOut(NamedTuple):
@@ -346,17 +360,16 @@ def _check_supported(settings: IPMSettings, warm) -> None:
     """Raise for the parts of the JAX solver this port does not carry yet."""
     if settings.dtype != "float64":
         raise NotImplementedError(
-            "ipm_solve: only dtype='float64'; the float32 direction tiers "
-            "come with the phase32 refine-tier port")
-    if settings.phase32 in ("on", "lite", "refine"):
+            "ipm_solve: only dtype='float64'; the float32 solve is not "
+            "ported yet")
+    if settings.phase32 in ("on", "lite"):
         raise NotImplementedError(
-            f"ipm_solve: phase32={settings.phase32!r} (iter_products_refine "
-            "and the f32 tiers) waits for the refine-tier port with the df32 "
-            "and fused kernels")
-    if settings.use_df32 == "on" or settings.fused_direction == "on":
+            f"ipm_solve: phase32={settings.phase32!r} (the plain float32 "
+            "direction tiers) is not ported yet; 'refine' and 'off' are")
+    if settings.fused_direction == "on":
         raise NotImplementedError(
-            "ipm_solve: use_df32/fused_direction 'on' wait for the "
-            "refine-tier port with the df32 and fused kernels")
+            "ipm_solve: fused_direction='on' waits for the port of the three "
+            "fused direction kernels ('auto' runs the non-fused direction)")
     if settings.use_pallas:
         raise NotImplementedError(
             "ipm_solve: use_pallas (schur_wwt, cholesky, tril_inverse "
@@ -389,7 +402,18 @@ def ipm_solve(
     settings: IPMSettings,
 ) -> SolveOutput:
     """Solve a batch of SDPs on ``data``'s device.  Array arguments may be
-    tensors or numpy arrays; they are moved to that device in float64."""
+    tensors or numpy arrays; they are moved to that device in float64.
+
+    ``settings.phase32``: "off" runs every iteration in float64; "refine"
+    runs the JAX package's refine tier from the first iteration — float32
+    factors, float64 assembly, ``schur_refine`` refinement passes — and an
+    iteration in float64 below ``refine_switch``, after a float32 NaN
+    (``nan32_policy="repair"``) or for an instance that stalled in the
+    tier.  Its exact contractions go through the ``ops/df32.py`` kernels
+    unless ``use_df32="off"`` (their plain versions; either way on CPU
+    tensors).  ``fused_direction="auto"`` runs the non-fused direction;
+    "on" raises until the fused kernels are ported.
+    """
     _check_supported(settings, (warm_y, warm_mask, warm_X, ip_point))
     dtype = torch.float64
     dev = data.device
@@ -487,11 +511,29 @@ def ipm_solve(
         converged=zeros_b, failed=zeros_b,
         best_merit=torch.full((B,), float("inf"), dtype=dtype, device=dev),
         stall=torch.zeros((B,), dtype=torch.int32, device=dev),
+        nan32=zeros_b, esc=zeros_b,
     )
 
     cmax = torch.stack([data.C[t].abs().max() for t in bidx]).max()
     datascale = 1.0 + torch.maximum(cmax, data.h.abs().max())
     free_outer = (~pre.fix)[:, :, None] & (~pre.fix)[:, None, :]
+
+    # refine tier (phase32="refine"): float32 shadows of the static data and
+    # the loop-invariant operands of its exact contractions, built once per
+    # solve — A flattened per bucket to (mp, K*n*n) in feature order
+    # (k, a, b), and the row system and its transpose, contiguous
+    use_refine = settings.phase32 == "refine"
+    if use_refine:
+        A32 = tuple(data.A[t].to(torch.float32) for t in bidx)
+        G32 = Gall.to(torch.float32)
+        A_flat = tuple(data.A[t].transpose(0, 1).reshape(mp, -1) for t in bidx)
+        Gall_c = Gall.contiguous()
+        GallT = Gall.transpose(1, 2).contiguous()
+        mm_f64, short64, long64 = (
+            (df32.bmm64, df32.contract_short64, df32.contract_long64)
+            if settings.use_df32 != "off" else
+            (df32.bmm64_plain, df32.contract_short64_plain,
+             df32.contract_long64_plain))
 
     def comp_gap(st: IPMState):
         gsdp = bsum([torch.where(pad_outer[t], st.X[t] * st.S[t], 0.0)
@@ -549,14 +591,21 @@ def ipm_solve(
             ad = torch.where(oks[k], cd[k], ad)
         return ap, ad
 
-    def probe_steps(Lxinv, Lsinv, dX, dS):
+    def congruences(Lxinv, Lsinv, dX, dS, cast32):
+        """Per bucket the stacked X- and S-side congruences Y = L^-1 dM
+        L^-T (``cast32``: directions cast to the refine tier's float32
+        factors first)."""
+        f32 = torch.float32
+        return [ymat(torch.cat([Lxinv[t], Lsinv[t]], dim=1),
+                     torch.cat([dX[t].to(f32), dS[t].to(f32)] if cast32
+                               else [dX[t], dS[t]], dim=1)) for t in bidx]
+
+    def probe_steps(Lxinv, Lsinv, dX, dS, cast32=False):
         """PSD max-steps for step_rule="probe": ONE congruence per bucket
         yields both the Gershgorin base (certified) and the scaled
         directions the ladder probes."""
         Yxs, Yss, gx, gs_ = [], [], [], []
-        for t in bidx:
-            Yb = ymat(torch.cat([Lxinv[t], Lsinv[t]], dim=1),
-                      torch.cat([dX[t], dS[t]], dim=1))
+        for t, Yb in enumerate(congruences(Lxinv, Lsinv, dX, dS, cast32)):
             Kt = dX[t].shape[1]
             stp = gersh_step_from_ymat(Yb)
             gx.append(torch.amin(stp[:, :Kt], dim=1))
@@ -618,6 +667,212 @@ def ipm_solve(
         return EvalOut(Rp=Rp, rpl=rpl, rplb=rplb, rpub=rpub, rd=rd, gap=gap,
                        relgap=relgap, pinf=pinf, dinf=dinf, conv=conv)
 
+    def psd_steps(Lxinv, Lsinv, dX, dS, step_fn, cast32):
+        """min over blocks of the X- and S-side PSD max-steps, with the
+        X/S congruence transforms stacked (``cast32``: in the refine tier's
+        float32; the steps come back in float64)."""
+        apv, adv = [], []
+        for t, Yb in enumerate(congruences(Lxinv, Lsinv, dX, dS, cast32)):
+            stp = step_fn(Yb)
+            Kt = dX[t].shape[1]
+            apv.append(torch.amin(stp[:, :Kt], dim=1))
+            adv.append(torch.amin(stp[:, Kt:], dim=1))
+        return (torch.amin(torch.stack(apv), dim=0).to(dtype),
+                torch.amin(torch.stack(adv), dim=0).to(dtype))
+
+    def steplens(st, d, psd):
+        """Primal and dual step lengths of direction ``d``: the PSD pair
+        ``psd`` capped by the LP rows' and bounds' ratio tests."""
+        dxl, dsl, dxlb, dslb, dxub, dsub = d[3:]
+        ap, ad = psd
+        ap = torch.minimum(ap, max_step_pos(st.xl, dxl, pre.rowmask))
+        ap = torch.minimum(ap, max_step_pos(st.xlb, dxlb, pre.lbmask))
+        ap = torch.minimum(ap, max_step_pos(st.xub, dxub, pre.ubmask))
+        ad = torch.minimum(ad, max_step_pos(st.sl, dsl, pre.rowmask))
+        ad = torch.minimum(ad, max_step_pos(st.slb, dslb, pre.lbmask))
+        ad = torch.minimum(ad, max_step_pos(st.sub, dsub, pre.ubmask))
+        return ap, ad
+
+    def lp_rhs(st, ev, sdp, gt, rcl, rclb, rcub):
+        """Schur right-hand side: the blocks' part ``sdp`` plus the LP
+        rows' (``gt`` is G^T w) and the bounds' parts, minus rd."""
+        return (sdp
+                + gt(torch.where(pre.rowmask, (rcl - st.xl * ev.rpl) / st.sl,
+                                 0.0))
+                + torch.where(pre.lbmask, (rclb - st.xlb * ev.rplb) / st.slb,
+                              0.0)
+                - torch.where(pre.ubmask, (rcub - st.xub * ev.rpub) / st.sub,
+                              0.0)
+                - ev.rd)
+
+    def lp_recover(st, ev, dy, Gdy, rcl, rclb, rcub):
+        """The LP rows' and bounds' multiplier and slack steps from dy
+        (``Gdy`` = G dy)."""
+        dsl = torch.where(pre.rowmask, Gdy + ev.rpl, 0.0)
+        dslb = torch.where(pre.lbmask, dy + ev.rplb, 0.0)
+        dsub = torch.where(pre.ubmask, -dy + ev.rpub, 0.0)
+        dxl = torch.where(pre.rowmask, (rcl - st.xl * dsl) / st.sl, 0.0)
+        dxlb = torch.where(pre.lbmask, (rclb - st.xlb * dslb) / st.slb, 0.0)
+        dxub = torch.where(pre.ubmask, (rcub - st.xub * dsub) / st.sub, 0.0)
+        return dxl, dsl, dxlb, dslb, dxub, dsub
+
+    def mehrotra(st, ev, Lxinv, Lsinv, direction, mm, refine):
+        """Mehrotra predictor-corrector on one factored iteration.
+        ``direction(Rc, rcl, rclb, rcub)`` solves the Newton system for a
+        complementarity right-hand side and returns (dy, dX, dS, dxl, dsl,
+        dxlb, dslb, dxub, dsub); ``mm`` is the batched float64 product of
+        the complementarity terms.  ``refine``: the step rules run on the
+        tier's float32 factors, and the Gondzio correctors run."""
+        X, S = st.X, st.S
+        mu = ev.gap / nu
+        if settings.step_rule == "power":
+            psd_ymat_step = max_step_from_ymat
+        elif settings.step_rule in ("gershgorin", "probe"):
+            psd_ymat_step = gersh_step_from_ymat
+        else:
+            psd_ymat_step = max_step_eigh_from_ymat
+
+        def rule_steps(d):
+            """Step lengths of direction ``d`` by the step rule, with the
+            fraction-to-boundary factor tau."""
+            if settings.step_rule == "probe":
+                app, adp = probe_steps(Lxinv, Lsinv, d[1], d[2], cast32=refine)
+                psd = (app.to(dtype), adp.to(dtype))
+            else:
+                psd = psd_steps(Lxinv, Lsinv, d[1], d[2], psd_ymat_step,
+                                refine)
+            ap, ad = steplens(st, d, psd)
+            return (torch.clamp_max(settings.tau * ap, 1.0),
+                    torch.clamp_max(settings.tau * ad, 1.0))
+
+        XS = tuple(mm(X[t], S[t]) for t in bidx)
+        # predictor (affine scaling)
+        Rc_a = tuple(torch.where(pad_outer[t], -XS[t], 0.0) for t in bidx)
+        rcl_a = torch.where(pre.rowmask, -st.xl * st.sl, 0.0)
+        rclb_a = torch.where(pre.lbmask, -st.xlb * st.slb, 0.0)
+        rcub_a = torch.where(pre.ubmask, -st.xub * st.sub, 0.0)
+        da = direction(Rc_a, rcl_a, rclb_a, rcub_a)
+        dy_a, dX_a, dS_a, dxl_a, dsl_a, dxlb_a, dslb_a, dxub_a, dsub_a = da
+        # the affine step lengths only feed Mehrotra's sigma estimate, so
+        # the cheap conservative Gershgorin bound serves regardless of rule
+        ap_a, ad_a = steplens(st, da, psd_steps(
+            Lxinv, Lsinv, dX_a, dS_a, gersh_step_from_ymat, refine))
+        ap_a = torch.clamp_max(ap_a, 1.0)
+        ad_a = torch.clamp_max(ad_a, 1.0)
+
+        # Mehrotra centering parameter
+        apx = ap_a[:, None, None, None]
+        adx = ad_a[:, None, None, None]
+        gap_sdp_a = bsum([torch.where(
+            pad_outer[t],
+            (X[t] + apx * dX_a[t]) * (S[t] + adx * dS_a[t]), 0.0)
+            .sum(dim=(1, 2, 3)) for t in bidx])
+        gap_a = (
+            gap_sdp_a
+            + torch.where(pre.rowmask,
+                          (st.xl + ap_a[:, None] * dxl_a)
+                          * (st.sl + ad_a[:, None] * dsl_a), 0.0).sum(dim=1)
+            + torch.where(pre.lbmask,
+                          (st.xlb + ap_a[:, None] * dxlb_a)
+                          * (st.slb + ad_a[:, None] * dslb_a), 0.0).sum(dim=1)
+            + torch.where(pre.ubmask,
+                          (st.xub + ap_a[:, None] * dxub_a)
+                          * (st.sub + ad_a[:, None] * dsub_a), 0.0).sum(dim=1)
+        )
+        sigma = torch.clamp(
+            (torch.clamp_min(gap_a, 0.0) / torch.clamp_min(ev.gap, 1e-30))
+            ** 3, settings.sigma_min, 1.0)
+
+        # corrector
+        smu = (sigma * mu)[:, None, None, None]
+        Rc_c = tuple(torch.where(
+            pad_outer[t],
+            smu * eye_act[t] - XS[t] - mm(dX_a[t], dS_a[t]),
+            0.0) for t in bidx)
+        smu_v = (sigma * mu)[:, None]
+        rcl_c = torch.where(pre.rowmask,
+                            smu_v - st.xl * st.sl - dxl_a * dsl_a, 0.0)
+        rclb_c = torch.where(pre.lbmask,
+                             smu_v - st.xlb * st.slb - dxlb_a * dslb_a, 0.0)
+        rcub_c = torch.where(pre.ubmask,
+                             smu_v - st.xub * st.sub - dxub_a * dsub_a, 0.0)
+        d = direction(Rc_c, rcl_c, rclb_c, rcub_c)
+        ap, ad = rule_steps(d)
+
+        # Gondzio multiple centrality correctors (refine tier): reuse the
+        # factored Schur complement to pull outlier complementarity
+        # products toward [0.1, 10] * sigma*mu; per instance, a corrected
+        # direction is kept only when its step lengths (by the same rule)
+        # grow by 0.05
+        tgt = sigma * mu
+        for _ in range(max(int(settings.gondzio), 0) if refine else 0):
+            dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub = d
+            aptv = torch.clamp_max(ap + 0.1, 1.0)
+            adtv = torch.clamp_max(ad + 0.1, 1.0)
+            apt = aptv[:, None, None, None]
+            adt = adtv[:, None, None, None]
+
+            def cor(prod, lo, hi):
+                return torch.minimum(torch.maximum(prod, lo), hi) - prod
+
+            lo4 = (0.1 * tgt)[:, None, None, None]
+            hi4 = (10.0 * tgt)[:, None, None, None]
+            Rc_g = tuple(torch.where(
+                pad_outer[t],
+                cor(mm(X[t] + apt * dX[t], S[t] + adt * dS[t]),
+                    lo4 * eye_act[t], hi4 * eye_act[t]),
+                0.0) for t in bidx)
+            lo, hi = (0.1 * tgt)[:, None], (10.0 * tgt)[:, None]
+            rcl_g = torch.where(pre.rowmask, cor(
+                (st.xl + aptv[:, None] * dxl) * (st.sl + adtv[:, None] * dsl),
+                lo, hi), 0.0)
+            rclb_g = torch.where(pre.lbmask, cor(
+                (st.xlb + aptv[:, None] * dxlb)
+                * (st.slb + adtv[:, None] * dslb), lo, hi), 0.0)
+            rcub_g = torch.where(pre.ubmask, cor(
+                (st.xub + aptv[:, None] * dxub)
+                * (st.sub + adtv[:, None] * dsub), lo, hi), 0.0)
+            dg = direction(Rc_g, rcl_g, rclb_g, rcub_g)
+            cand = tuple(
+                tuple(a + b for a, b in zip(x, g)) if isinstance(x, tuple)
+                else x + g for x, g in zip(d, dg))
+            ap2, ad2 = rule_steps(cand)
+            acc = (ap2 + ad2) >= (ap + ad) + 0.05
+
+            def pick(new, old):
+                return torch.where(acc.view((-1,) + (1,) * (new.dim() - 1)),
+                                   new, old)
+
+            d = tuple(
+                tuple(pick(a, b) for a, b in zip(x, y))
+                if isinstance(x, tuple) else pick(x, y)
+                for x, y in zip(cand, d))
+            ap = torch.where(acc, ap2, ap)
+            ad = torch.where(acc, ad2, ad)
+
+        if settings.step_rule == "power":
+            # the power estimate can overshoot the PSD boundary: probe the
+            # stepped matrices with a (stacked) Cholesky and shrink
+            # offending steps (the refine tier probes in float32)
+            dX, dS = d[1], d[2]
+            for _ in range(2):
+                okx = torch.ones((B,), dtype=torch.bool, device=dev)
+                oks = torch.ones((B,), dtype=torch.bool, device=dev)
+                for t in bidx:
+                    Kt = dX[t].shape[1]
+                    probe = torch.cat(
+                        [X[t] + ap[:, None, None, None] * dX[t],
+                         S[t] + ad[:, None, None, None] * dS[t]], dim=1)
+                    Lp = (cholesky(probe.to(torch.float32)) if refine
+                          else _chol_probe(probe, settings))
+                    nan_half = torch.isnan(Lp).any(dim=-1).any(dim=-1)
+                    okx = okx & ~nan_half[:, :Kt].any(dim=1)
+                    oks = oks & ~nan_half[:, Kt:].any(dim=1)
+                ap = torch.where(okx, ap, 0.4 * ap)
+                ad = torch.where(oks, ad, 0.4 * ad)
+
+        return (*d, ap, ad)
+
     def iter_products(st: IPMState, ev: EvalOut):
         """One Mehrotra predictor-corrector direction + step-length pass in
         float64.  Per bucket, ONE stacked Cholesky + ONE stacked triangular
@@ -626,8 +881,7 @@ def ipm_solve(
         matmuls (ops/eigen.ymat)."""
         X, S = st.X, st.S
         xl, sl, xlb, slb, xub, sub = st.xl, st.sl, st.xlb, st.slb, st.xub, st.sub
-        Rp, rpl, rplb, rpub, rd = ev.Rp, ev.rpl, ev.rplb, ev.rpub, ev.rd
-        mu = ev.gap / nu
+        Rp = ev.Rp
 
         def chol_inv(t):
             Kt = X[t].shape[1]
@@ -663,163 +917,184 @@ def ipm_solve(
         Minv = torch.einsum("xba,xbc->xac", Lminv, Lminv)  # Lm^-T Lm^-1
 
         def direction(Rc, rcl, rclb, rcub):
-            PsiSinv = [torch.einsum(
-                "xkab,xkbc->xkac",
-                Rc[t] - torch.einsum("xkab,xkbc->xkac", X[t], Rp[t]),
-                Sinv[t]) for t in bidx]
-            rhs = (
+            PsiSinv = [_bmm(Rc[t] - _bmm(X[t], Rp[t]), Sinv[t]) for t in bidx]
+            rhs = lp_rhs(
+                st, ev,
                 bsum([torch.einsum("kjab,xkba->xj", data.A[t], PsiSinv[t])
-                      for t in bidx])
-                + torch.einsum("xpm,xp->xm", Gall,
-                               torch.where(pre.rowmask,
-                                           (rcl - xl * rpl) / sl, 0.0))
-                + torch.where(pre.lbmask, (rclb - xlb * rplb) / slb, 0.0)
-                - torch.where(pre.ubmask, (rcub - xub * rpub) / sub, 0.0)
-                - rd
-            )
+                      for t in bidx]),
+                lambda w: torch.einsum("xpm,xp->xm", Gall, w),
+                rcl, rclb, rcub)
             rhs = torch.where(pre.fix, 0.0, rhs)
             dy = torch.einsum("xij,xj->xi", Minv, rhs)
             dS = tuple(torch.where(
                 pad_outer[t],
                 torch.einsum("kjab,xj->xkab", data.A[t], dy) + Rp[t],
                 0.0) for t in bidx)
-            dsl = torch.where(pre.rowmask,
-                              torch.einsum("xpm,xm->xp", Gall, dy) + rpl, 0.0)
-            dslb = torch.where(pre.lbmask, dy + rplb, 0.0)
-            dsub = torch.where(pre.ubmask, -dy + rpub, 0.0)
-            dX = tuple(torch.where(pad_outer[t], sym(torch.einsum(
-                "xkab,xkbc->xkac",
-                Rc[t] - torch.einsum("xkab,xkbc->xkac", X[t], dS[t]),
-                Sinv[t])), 0.0) for t in bidx)
-            dxl = torch.where(pre.rowmask, (rcl - xl * dsl) / sl, 0.0)
-            dxlb = torch.where(pre.lbmask, (rclb - xlb * dslb) / slb, 0.0)
-            dxub = torch.where(pre.ubmask, (rcub - xub * dsub) / sub, 0.0)
+            dX = tuple(torch.where(pad_outer[t], sym(_bmm(
+                Rc[t] - _bmm(X[t], dS[t]), Sinv[t])), 0.0) for t in bidx)
+            dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
+                st, ev, dy, torch.einsum("xpm,xm->xp", Gall, dy),
+                rcl, rclb, rcub)
             return dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub
 
-        if settings.step_rule == "power":
-            psd_ymat_step = max_step_from_ymat
-        elif settings.step_rule in ("gershgorin", "probe"):
-            psd_ymat_step = gersh_step_from_ymat
-        else:
-            psd_ymat_step = max_step_eigh_from_ymat
+        return mehrotra(st, ev, Lxinv, Lsinv, direction, _bmm, refine=False)
 
-        def psd_steps(dX, dS, step_fn):
-            """min over blocks of the X- and S-side PSD max-steps, with the
-            X/S congruence transforms stacked."""
-            apv, adv = [], []
-            for t in bidx:
-                Yb = ymat(torch.cat([Lxinv[t], Lsinv[t]], dim=1),
-                          torch.cat([dX[t], dS[t]], dim=1))
-                stp = step_fn(Yb)
-                Kt = dX[t].shape[1]
-                apv.append(torch.amin(stp[:, :Kt], dim=1))
-                adv.append(torch.amin(stp[:, Kt:], dim=1))
-            return (torch.amin(torch.stack(apv), dim=0),
-                    torch.amin(torch.stack(adv), dim=0))
+    def iter_products_refine(st: IPMState, ev: EvalOut):
+        """float32-factorization / float64-assembly Mehrotra pass (the JAX
+        package's "refine" tier, non-fused direction).
 
-        def steplens(dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, step_fn,
-                     psd=None):
-            ap, ad = psd_steps(dX, dS, step_fn) if psd is None else psd
-            ap = torch.minimum(ap, max_step_pos(xl, dxl, pre.rowmask))
-            ap = torch.minimum(ap, max_step_pos(xlb, dxlb, pre.lbmask))
-            ap = torch.minimum(ap, max_step_pos(xub, dxub, pre.ubmask))
-            ad = torch.minimum(ad, max_step_pos(sl, dsl, pre.rowmask))
-            ad = torch.minimum(ad, max_step_pos(slb, dslb, pre.lbmask))
-            ad = torch.minimum(ad, max_step_pos(sub, dsub, pre.ubmask))
-            return ap, ad
+        Factor-class work (Cholesky, triangular inverse, W features, Schur
+        Gram, step-rule congruences and probes) runs in float32.
+        Everything whose ACCURACY the Newton step depends on near
+        convergence stays float64: the corrector targets (X S products at
+        size ~mu), the right-hand side from the carried float64 residuals,
+        the dS/dX recoveries, and the Schur solve — refined to float64
+        accuracy by ``schur_refine`` passes of (float64 residual matvec ->
+        float32 back-solve) against the float32 feature Gram plus
+        regularization.  The exact contractions are ``mm_f64``,
+        ``short64`` and ``long64`` (the df32 kernels, or their plain
+        versions)."""
+        f32 = torch.float32
+        X32 = tuple(st.X[t].to(f32) for t in bidx)
 
-        XS = tuple(torch.einsum("xkab,xkbc->xkac", X[t], S[t]) for t in bidx)
-        # predictor (affine scaling)
-        Rc_a = tuple(torch.where(pad_outer[t], -XS[t], 0.0) for t in bidx)
-        rcl_a = torch.where(pre.rowmask, -xl * sl, 0.0)
-        rclb_a = torch.where(pre.lbmask, -xlb * slb, 0.0)
-        rcub_a = torch.where(pre.ubmask, -xub * sub, 0.0)
-        da = direction(Rc_a, rcl_a, rclb_a, rcub_a)
-        dy_a, dX_a, dS_a, dxl_a, dsl_a, dxlb_a, dslb_a, dxub_a, dsub_a = da
-        # the affine step lengths only feed Mehrotra's sigma estimate, so
-        # the cheap conservative Gershgorin bound serves regardless of rule
-        ap_a, ad_a = steplens(dX_a, dS_a, dxl_a, dsl_a, dxlb_a, dslb_a,
-                              dxub_a, dsub_a, gersh_step_from_ymat)
-        ap_a = torch.clamp_max(ap_a, 1.0)
-        ad_a = torch.clamp_max(ad_a, 1.0)
+        def chol_inv(t):
+            Kt = X32[t].shape[1]
+            both = torch.cat([X32[t], st.S[t].to(f32)], dim=1)
+            # Jacobi equilibration before the float32 factorization: any
+            # factor basis serves the congruences downstream, so factor
+            # D B D (cond(DBD) << cond(B)) and fold D into the returned
+            # inverse factor.  A float32 NaN here is repaired by the nan32
+            # float64 iteration in body().
+            dg = torch.sqrt(torch.clamp_min(
+                torch.diagonal(both, dim1=-2, dim2=-1), 1e-30))
+            dinv = 1.0 / dg
+            scaled = both * dinv[..., :, None] * dinv[..., None, :]
+            Linv = _tril_inv(cholesky(scaled)) * dinv[..., None, :]
+            return Linv[:, :Kt], Linv[:, Kt:]
 
-        # Mehrotra centering parameter
-        apx = ap_a[:, None, None, None]
-        adx = ad_a[:, None, None, None]
-        gap_sdp_a = bsum([torch.where(
-            pad_outer[t],
-            (X[t] + apx * dX_a[t]) * (S[t] + adx * dS_a[t]), 0.0)
-            .sum(dim=(1, 2, 3)) for t in bidx])
-        gap_a = (
-            gap_sdp_a
-            + torch.where(pre.rowmask,
-                          (xl + ap_a[:, None] * dxl_a)
-                          * (sl + ad_a[:, None] * dsl_a), 0.0).sum(dim=1)
-            + torch.where(pre.lbmask,
-                          (xlb + ap_a[:, None] * dxlb_a)
-                          * (slb + ad_a[:, None] * dslb_a), 0.0).sum(dim=1)
-            + torch.where(pre.ubmask,
-                          (xub + ap_a[:, None] * dxub_a)
-                          * (sub + ad_a[:, None] * dsub_a), 0.0).sum(dim=1)
-        )
-        sigma = torch.clamp(
-            (torch.clamp_min(gap_a, 0.0) / torch.clamp_min(ev.gap, 1e-30))
-            ** 3, settings.sigma_min, 1.0)
+        LXS = [chol_inv(t) for t in bidx]
+        Lxinv = tuple(v[0] for v in LXS)
+        Lsinv = tuple(v[1] for v in LXS)
+        # S^-1 is float32-VALUED (a preconditioner-quality inverse), upcast
+        # exactly: exactness is only needed in the cancelling products
+        Sinv64 = tuple(sym(torch.einsum("xkba,xkbc->xkac", Lsinv[t],
+                                        Lsinv[t])).to(dtype) for t in bidx)
 
-        # corrector
-        smu = (sigma * mu)[:, None, None, None]
-        Rc_c = tuple(torch.where(
-            pad_outer[t],
-            smu * eye_act[t] - XS[t]
-            - torch.einsum("xkab,xkbc->xkac", dX_a[t], dS_a[t]),
-            0.0) for t in bidx)
-        smu_v = (sigma * mu)[:, None]
-        rcl_c = torch.where(pre.rowmask, smu_v - xl * sl - dxl_a * dsl_a, 0.0)
-        rclb_c = torch.where(pre.lbmask,
-                             smu_v - xlb * slb - dxlb_a * dslb_a, 0.0)
-        rcub_c = torch.where(pre.ubmask,
-                             smu_v - xub * sub - dxub_a * dsub_a, 0.0)
-        dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub = direction(
-            Rc_c, rcl_c, rclb_c, rcub_c)
-        psd_pair = None
-        if settings.step_rule == "probe":
-            app, adp = probe_steps(Lxinv, Lsinv, dX, dS)
-            psd_pair = (app.to(dtype), adp.to(dtype))
-        ap, ad = steplens(dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub,
-                          psd_ymat_step, psd=psd_pair)
-        ap = torch.clamp_max(settings.tau * ap, 1.0)
-        ad = torch.clamp_max(settings.tau * ad, 1.0)
+        def astar_f64(P):
+            """sum_t einsum('kjab,xkba->xj', A_t, P_t)."""
+            return bsum([long64(A_flat[t],
+                                P[t].transpose(-1, -2).reshape(B, -1))
+                         for t in bidx])
 
-        if settings.step_rule == "power":
-            # the power estimate can overshoot the PSD boundary: probe the
-            # stepped matrices with a (stacked) Cholesky and shrink
-            # offending steps
-            for _ in range(2):
-                okx = torch.ones((B,), dtype=torch.bool, device=dev)
-                oks = torch.ones((B,), dtype=torch.bool, device=dev)
-                for t in bidx:
-                    Kt = dX[t].shape[1]
-                    probe = torch.cat(
-                        [X[t] + ap[:, None, None, None] * dX[t],
-                         S[t] + ad[:, None, None, None] * dS[t]], dim=1)
-                    Lp = _chol_probe(probe, settings)
-                    nan_half = torch.isnan(Lp).any(dim=-1).any(dim=-1)
-                    okx = okx & ~nan_half[:, :Kt].any(dim=1)
-                    oks = oks & ~nan_half[:, Kt:].any(dim=1)
-                ap = torch.where(okx, ap, 0.4 * ap)
-                ad = torch.where(oks, ad, 0.4 * ad)
+        def aapply_f64(dy):
+            """einsum('kjab,xj->xkab', A_t, dy) per bucket."""
+            return tuple(short64(A_flat[t], dy).reshape(
+                (B, data.A[t].shape[0]) + data.A[t].shape[2:]) for t in bidx)
 
-        return dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, ap, ad
+        # W features + Schur Gram in float32.  W_j = Lx^T A_j Ls^{-T} with
+        # Lx^T = Lxinv X (exactly, as X = Lx Lx^T): no second factor.
+        def wfeat(t):
+            LxT = torch.einsum("xkab,xkbc->xkac", Lxinv[t], X32[t])
+            return _wfeat_flat(LxT.transpose(-1, -2), A32[t], Lsinv[t], B, mp)
 
-    def body(st: IPMState, ev: EvalOut):
-        dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, ap, ad = \
-            iter_products(st, ev)
+        wl64 = torch.where(pre.rowmask, st.xl / st.sl, 0.0)
+        wlb64 = torch.where(pre.lbmask, st.xlb / st.slb, 0.0)
+        wub64 = torch.where(pre.ubmask, st.xub / st.sub, 0.0)
+        Wg = torch.sqrt(wl64).to(f32)[:, :, None] * G32
+        Wall = torch.cat([wfeat(t) for t in bidx] + [Wg.transpose(1, 2)],
+                         dim=2)
+        M = _schur_product(Wall)
+        eye32 = eye_mp.to(f32)
+        M = M + (wlb64 + wub64).to(f32)[:, :, None] * eye32[None]
+        M = torch.where(free_outer, M, 0.0)
+        M = M + pre.fix.to(f32)[:, :, None] * eye32[None]
+        # float32-safe regularization: the factor is only a preconditioner
+        # (the refinement target includes the same shift, so the system
+        # solved is the proximally regularized Newton system)
+        reg = max(settings.chol_reg, 1e-7) * (
+            1.0 + torch.amax(M.abs(), dim=(1, 2)))
+        M = M + reg[:, None, None] * eye32[None]
+        # Jacobi equilibration: near convergence the Schur diagonal spans
+        # many orders of magnitude, and cond(D M D) << cond(M) keeps the
+        # float32-preconditioned refinement contracting
+        dsc = 1.0 / torch.sqrt(torch.clamp_min(
+            torch.diagonal(M, dim1=1, dim2=2), 1e-30))
+        Ms = M * dsc[:, :, None] * dsc[:, None, :]
+        Lminv = _tril_inv(cholesky(Ms))
+        Minv = torch.einsum("xba,xbc->xac", Lminv, Lminv)
+        dsc64 = dsc.to(dtype)
+        diag64 = wlb64 + wub64
+        reg64 = reg.to(dtype)
+
+        def mv_M(vf):
+            """(W W^T + diag + reg I) vf in float64 on the float32 features."""
+            wt = short64(Wall, vf)
+            return long64(Wall, wt) + diag64 * vf + reg64[:, None] * vf
+
+        def precond(r64):
+            """float32 back-solve through the equilibrated factor."""
+            v = (dsc64 * r64).to(f32)
+            return dsc64 * torch.einsum("xij,xj->xi", Minv, v).to(dtype)
+
+        def schur_solve(rhs):
+            """(M + reg I) dy = rhs to float64 accuracy: float32
+            preconditioned solve + float64 residual refinement against the
+            exact Gram of the float32 features."""
+            rhsf = torch.where(pre.fix, 0.0, rhs)
+            dy = precond(rhsf)
+            for _ in range(max(int(settings.schur_refine), 0)):
+                vf = torch.where(pre.fix, 0.0, dy)
+                r = rhsf - torch.where(pre.fix, 0.0, mv_M(vf))
+                dy = dy + precond(r)
+            return torch.where(pre.fix, 0.0, dy)
+
+        # X Rp is direction-independent: hoisted out of direction()
+        XRp = tuple(mm_f64(st.X[t], ev.Rp[t]) for t in bidx)
+
+        def direction(Rc, rcl, rclb, rcub):
+            """Newton direction with exact assembly and recovery (float64
+            in and out; only the Schur back-solve passes through
+            float32)."""
+            PsiSinv = [mm_f64(Rc[t] - XRp[t], Sinv64[t]) for t in bidx]
+            rhs = lp_rhs(st, ev, astar_f64(PsiSinv),
+                         lambda w: long64(GallT, w), rcl, rclb, rcub)
+            dy = schur_solve(torch.where(pre.fix, 0.0, rhs))
+            dSr = aapply_f64(dy)
+            dS = tuple(torch.where(pad_outer[t], dSr[t] + ev.Rp[t], 0.0)
+                       for t in bidx)
+            # the dX recovery stays exact: the recovered primal must track
+            # the size-mu complementarity targets
+            dX = tuple(torch.where(pad_outer[t], sym(mm_f64(
+                Rc[t] - mm_f64(st.X[t], dS[t]), Sinv64[t])), 0.0)
+                for t in bidx)
+            dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
+                st, ev, dy, long64(Gall_c, dy), rcl, rclb, rcub)
+            return dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub
+
+        return mehrotra(st, ev, Lxinv, Lsinv, direction, mm_f64, refine=True)
+
+    def body(st: IPMState, ev: EvalOut, use32: bool):
+        dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, ap, ad = (
+            iter_products_refine(st, ev) if use32 else iter_products(st, ev))
 
         # freeze finished instances; detect numerical failure (NaN)
         bad = torch.isnan(dy).any(dim=1) | torch.isnan(ap) | torch.isnan(ad)
         for t in bidx:
             bad = bad | torch.isnan(dX[t]).any(dim=-1).any(dim=-1).any(dim=-1)
-        failed = st.failed | (bad & ~st.done)
+        nan32 = st.nan32
+        if use_refine and settings.nan32_policy != "fail":
+            # a NaN from the refine tier is a PRECISION failure, not a solve
+            # failure: skip the update and run the next iteration in
+            # float64.  A one-iteration repair: nan32 clears after every
+            # float64 iteration, so the batch drops back to the tier.
+            if use32:
+                failed = st.failed
+                nan32 = st.nan32 | (bad & ~st.done)
+            else:
+                failed = st.failed | (bad & ~st.done)
+                nan32 = torch.zeros_like(st.nan32)
+        else:
+            failed = st.failed | (bad & ~st.done)
         act = (~st.done) & ~bad
         # guarded updates (where, not multiply-by-zero: 0 * NaN = NaN
         # would poison frozen instances' states)
@@ -848,6 +1123,7 @@ def ipm_solve(
             sub=updv(st.sub, dsub, a2),
             it=st.it + 1,
             failed=failed,
+            nan32=nan32,
         )
         ev_n = evaluate(new)
         conv = ev_n.conv
@@ -859,6 +1135,16 @@ def ipm_solve(
         best_merit = torch.where(improved, merit, new.best_merit)
         stall_cnt = torch.where(improved | new.done, 0, new.stall + 1)
         stalled = stall_cnt >= settings.stall_window
+        esc = new.esc
+        if use_refine:
+            # fast->stable escalation (sdpisolver_sdpa.cpp:1416-1441 role):
+            # an instance stalling in the refine tier moves to float64
+            # (sticky via esc) with a fresh stall budget; only a SECOND
+            # stall, in float64, fails it
+            esc_now = stalled & ~new.done & ~conv & ~new.esc
+            stalled = stalled & ~esc_now
+            stall_cnt = torch.where(esc_now, 0, stall_cnt)
+            esc = new.esc | esc_now
         failed2 = new.failed | (stalled & ~new.done & ~conv)
         newly_conv = conv & ~new.done & ~failed2
         st_out = new._replace(
@@ -867,13 +1153,33 @@ def ipm_solve(
             failed=failed2,
             best_merit=best_merit,
             stall=stall_cnt,
+            esc=esc,
         )
         return st_out, ev_n
 
+    def tier32(st: IPMState, ev: EvalOut) -> torch.Tensor:
+        """The refine tier's choice for the next iteration, on the device:
+        float32 while every active instance's relative gap is above
+        refine_switch and none of them needs the nan32 repair or has
+        escalated."""
+        active = ~st.done
+        return (((ev.relgap > settings.refine_switch) | st.done).all()
+                & ~(st.nan32 & active).any() & ~(st.esc & active).any())
+
     st, ev = st0, evaluate(st0)
-    # one host read of the batch's done mask per iteration
-    while st.it < settings.max_iters and not bool(st.done.all()):
-        st, ev = body(st, ev)
+    f64_iters = 0
+    while st.it < settings.max_iters:
+        # one host read per iteration: the batch's done mask, and in the
+        # refine tier the choice of tier in the same transfer
+        if use_refine:
+            all_done, use32 = torch.stack(
+                [st.done.all(), tier32(st, ev)]).tolist()
+        else:
+            all_done, use32 = bool(st.done.all()), False
+        if all_done:
+            break
+        f64_iters += not use32
+        st, ev = body(st, ev, use32)
 
     converged = st.converged | (ev.conv & ~pre.conflict & ~pre.allfixed)
     yh = torch.where(pre.fix, pre.fixval, st.y)
@@ -912,4 +1218,5 @@ def ipm_solve(
         xl=st.xl,
         xlb=st.xlb,
         xub=st.xub,
+        f64_iters=f64_iters,
     )

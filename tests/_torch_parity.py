@@ -29,6 +29,8 @@ INSTANCES = {
     "cls": lambda: jfam.cardinality_least_squares(6, 12, 3, seed=1),
     "tt": lambda: jfam.truss_topology(6, 2, seed=0),
     "mkp": lambda: jfam.min_k_partition(6, 3, 0.6, seed=1),
+    # MkP for the refine tier (tests/test_torch_ipm_refine.py says why)
+    "mkp_s12": lambda: jfam.min_k_partition(6, 3, 0.6, seed=12),
     "cls_4x8": lambda: jfam.cardinality_least_squares(4, 8, 2, seed=2),
     "cls_32": lambda: jfam.cardinality_least_squares(32, 64, 8, seed=5),
 }
