@@ -7,19 +7,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; no CUDA device means exit 2 before any work.
-2. build: the four kernels of ``scipsdp_tpu_torch/csrc`` with nvcc, one
+2. build: the seven kernels of ``scipsdp_tpu_torch/csrc`` with nvcc, one
    process per source, all started together.
 3. kernel checks, each kernel against its plain PyTorch version on the
    same inputs, timed with CUDA events in turns after warm-up (median of
    REPS samples of LAUNCHES back-to-back calls: "eager" times, which
-   include the host's launch cost; the df32 kernels also as device time,
-   the LAUNCHES calls replayed from one CUDA graph):
+   include the host's launch cost; the df32 and fused kernels also as
+   device time, the LAUNCHES calls replayed from one CUDA graph):
    ``cholesky_lanes`` at the probe shapes (rtol and atol 2e-4, the bar of
    the JAX package's lanes-Cholesky test; a non-PD matrix NaNs its own
    factor only); ``bmm64``, ``contract_short64`` and ``contract_long64``
    at the refine tier's shapes for cls_32 B=32 (the main path), cls_64 B=8
    and mkp_10 B=32, and on tests/test_df32.py's inputs (relative error at
-   most 1e-11: max |kernel - plain| / max |plain|).
+   most 1e-11: max |kernel - plain| / max |plain|); ``rhs_bucket``,
+   ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes
+   and tests/test_fused.py's, against their plain versions and against
+   float64 numpy references (the exact solve of the live subsystem for
+   the Schur solve) at tests/test_fused.py's bars (FUSED_BARS).
 4. float64 path: batched interior-point relaxation solves through
    ``ipm_solve`` with the device's resolved settings (phase32="off", probe
    step rule with the probe kernel): three requests of 32
@@ -30,23 +34,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and held against the same solve through the plain probe.
 5. refine path: the same four requests with phase32="refine" (the
    non-fused direction, probe rule, probe kernel): every request must
-   launch all four kernels.  A direct request must match the float64
-   tier's statuses and bounds (2 * gaptol), pass the same checks, and
-   agree with the same request through the plain df32 versions
-   (use_df32="off").  The probe and penalty requests may leave slots
-   FAILED, as the JAX package's refine tier does; those are counted, and
-   their OPTIMAL slots must hold to both references' bounds.
-6. timing: per request the three routes — refine with the kernels, refine
-   with the plain versions, the float64 tier — in turns; then the
-   float64 path's probe kernel against the plain probe.
-7. card against CPU: a small CLS instance, float64 tier and refine tier.
-8. profile: per request and route one torch.profiler pass (device busy
-   time, kernel launches, the ops with the most device time) and the host
-   syncs of one solve by source line (CUDA sync debug mode).
+   launch the probe kernel and the three df32 kernels.  A direct request
+   must match the float64 tier's statuses and bounds (2 * gaptol), pass
+   the same checks, and agree with the same request through the plain
+   df32 versions (use_df32="off").  The probe and penalty requests may
+   leave slots FAILED, as the JAX package's refine tier does; those are
+   counted, and their OPTIMAL slots must hold to both references' bounds.
+6. fused path: the same four requests with the fused direction
+   (fused_direction="on"): every request must launch the three fused
+   kernels, the probe kernel and ``bmm64``; the other kernels it launches
+   are logged.  A direct request must be all OPTIMAL, pass the same
+   checks, and match the non-fused refine path's statuses and both it and
+   the float64 tier in bounds (2 * gaptol); the probe and penalty requests
+   count their FAILED slots.
+7. timing: per request the four routes — refine with the fused direction,
+   refine with the df32 kernels, refine with their plain versions, the
+   float64 tier — in turns; then the float64 path's probe kernel against
+   the plain probe.
+8. card against CPU: a small CLS instance, float64 tier and refine tier
+   (non-fused and fused).
+9. profile: per request and route one torch.profiler pass (device busy
+   time, kernel launches in all and per iteration, the ops with the most
+   device time) and the host syncs of one solve by source line (CUDA sync
+   debug mode).
 
-The kernel launch counters are set to 0 just before the float64 path and
-the refine path each, and read just after.  The line before the last is a
-JSON object with one entry per kernel; the last line is
+The kernel launch counters are set to 0 just before the float64, the
+refine and the fused path each, and read just after.  The line before the
+last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN).
 """
@@ -68,7 +82,7 @@ import torch
 from scipsdp_tpu_torch import _build
 from scipsdp_tpu_torch.models.families import cardinality_least_squares
 from scipsdp_tpu_torch.models.problem import densify
-from scipsdp_tpu_torch.ops import df32, kernels
+from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
 from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
@@ -80,10 +94,19 @@ KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
     "contract_short64": (df32.contract_short64,
                          "scipsdp_tpu/ops/df32.py:275"),
     "contract_long64": (df32.contract_long64, "scipsdp_tpu/ops/df32.py:345"),
+    "rhs_bucket": (fused.rhs_bucket, "scipsdp_tpu/ops/fused.py:228"),
+    "schur_solve_fused": (fused.schur_solve_fused,
+                          "scipsdp_tpu/ops/fused.py:304"),
+    "recover_bucket": (fused.recover_bucket, "scipsdp_tpu/ops/fused.py:381"),
 }
 PLAIN = {"bmm64": df32.bmm64_plain,
          "contract_short64": df32.contract_short64_plain,
-         "contract_long64": df32.contract_long64_plain}
+         "contract_long64": df32.contract_long64_plain,
+         "rhs_bucket": fused.rhs_bucket_plain,
+         "schur_solve_fused": fused.schur_solve_fused_plain,
+         "recover_bucket": fused.recover_bucket_plain}
+DF32 = ("bmm64", "contract_short64", "contract_long64")
+FUSED = ("rhs_bucket", "schur_solve_fused", "recover_bucket")
 # (leading shape, n) of the matrix stacks cholesky_lanes is checked and
 # timed at; (32, 10) and (8, 10) are the stacked probe ladders of the main
 # path (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
@@ -101,6 +124,24 @@ DF32_SHAPES = [("cls_32 B=32", 66, 4225, 65, 32, 1, 65),
 DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
              "contract_short64": "cls_32 B=32 W^T v",
              "contract_long64": "cls_32 B=32 W u"}
+# the fused kernels' shapes: (label, B, K, n, mp, F = K n^2 + LP rows,
+# padded); the first three are DF32_SHAPES', then tests/test_fused.py's
+# inputs, then two rows of W long enough for 2 and 4 warps per row in the
+# Schur solve (1 and 8 above); a padded case zeroes the last 3 rows and
+# columns of its last block
+FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False),
+                ("cls_64 B=8", 8, 1, 129, 130, 16770, False),
+                ("mkp_10 B=32", 32, 1, 10, 46, 101, True),
+                ("test_fused", 4, 2, 13, 9, 37, True),
+                ("F=420", 8, 1, 20, 30, 420, True),
+                ("F=700", 8, 1, 26, 40, 700, False)]
+FUSED_MAIN = "cls_32 B=32"
+NREFINE = 3          # the settings' schur_refine
+# tests/test_fused.py's bars, each times max(floor, max |reference|), for
+# the kernel against its plain version and against the numpy reference
+FUSED_BARS = {"rhs_bucket": [(1e-12, 0.0)],
+              "schur_solve_fused": [(1e-10, 0.0)],
+              "recover_bucket": [(1e-12, 1.0), (1e-11, 1.0)]}
 GAMMA = 1e3
 REPS = 25
 LAUNCHES = 10
@@ -331,6 +372,126 @@ def df32_phase(device) -> dict:
     return out
 
 
+def _sym(a):
+    return 0.5 * (a + np.swapaxes(a, -1, -2))
+
+
+def fused_cases(device):
+    """(label, {kernel: (args, numpy reference)}) at FUSED_SHAPES, with
+    tests/test_fused.py's input scales: corrector-scale Rc and X Rp,
+    symmetric A, X and float32 S^-1; the Schur system with two fixed rows,
+    its preconditioner built as the refine tier builds it, and the exact
+    float64 solve of each live subsystem."""
+    rng = np.random.default_rng(2)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    cases = []
+    for label, B, K, n, mp, F, padded in FUSED_SHAPES:
+        A = _sym(rng.standard_normal((K, mp, n, n)))
+        Rc = rng.standard_normal((B, K, n, n)) * 1e-6
+        XRp = rng.standard_normal((B, K, n, n)) * 1e-6
+        Sinv = _sym(rng.standard_normal((B, K, n, n))).astype(np.float32)
+        P = np.einsum("zkac,zkcd->zkad", Rc - XRp, Sinv.astype(np.float64))
+        rhs_ref = np.einsum("kjpq,zkqp->zj", A, P)
+
+        W = rng.standard_normal((B, mp, F)).astype(np.float32)
+        diag = np.abs(rng.standard_normal((B, mp))) * 1e3
+        reg = np.full((B, mp), 1e-7)
+        fix = np.zeros((B, mp), bool)
+        fix[:, -2:] = True
+        rhs = rng.standard_normal((B, mp))
+        W64 = W.astype(np.float64)
+        M = np.einsum("bif,bjf->bij", W64, W64) + np.eye(mp) * (
+            diag + reg)[:, :, None]
+        sol = np.zeros((B, mp))
+        for b in range(B):
+            live = ~fix[b]
+            sol[b, live] = np.linalg.solve(M[b][np.ix_(live, live)],
+                                           rhs[b, live])
+        M = np.where(fix[:, :, None] | fix[:, None, :], 0.0, M)
+        M += np.eye(mp) * fix[:, :, None]
+        dsc = 1.0 / np.sqrt(np.einsum("bii->bi", M))
+        Minv = np.linalg.inv((M * dsc[:, :, None] * dsc[:, None, :])
+                             .astype(np.float32)).astype(np.float32)
+
+        dy = rng.standard_normal((B, mp)) * 1e-3
+        Rp = rng.standard_normal((B, K, n, n)) * 1e-7
+        X = _sym(rng.standard_normal((B, K, n, n)))
+        pad = np.ones((1, K, n, n), bool)
+        if padded:      # a smaller last block in the bucket
+            act = np.arange(n) < n - 3
+            pad[0, -1] = act[:, None] & act[None, :]
+        dS = np.where(pad, np.einsum("kjpq,zj->zkpq", A, dy) + Rp, 0.0)
+        dX = np.where(pad, np.einsum(
+            "zkac,zkcd->zkad", Rc - np.einsum("zkac,zkcd->zkad", X, dS),
+            Sinv.astype(np.float64)), 0.0)
+        cases.append((label, {
+            "rhs_bucket": ((t(A), t(Rc), t(XRp), t(Sinv)), (rhs_ref,)),
+            "schur_solve_fused": ((t(W), t(rhs), t(Minv), t(dsc), t(diag),
+                                   t(reg), t(fix), NREFINE), (sol,)),
+            "recover_bucket": ((t(A), t(dy), t(Rp), t(Rc), t(X), t(Sinv),
+                                t(pad)), (dS, dX)),
+        }))
+    return cases
+
+
+def fused_kernel_phase(device) -> dict:
+    """Check and time the three fused kernels against their plain versions
+    and the numpy references; returns the main-path entry of each."""
+    out = {}
+    for label, per_kernel in fused_cases(device):
+        for name in FUSED:
+            args, refs = per_kernel[name]
+            wrapper = KERNELS[name][0]
+            before = wrapper.launches
+            got = wrapper(*args)
+            want = PLAIN[name](*args)
+            torch.cuda.synchronize()
+            if wrapper.launches != before + 1:
+                raise AssertionError(f"{name}: no launch counted at {label}")
+            if name != "recover_bucket":
+                got, want = (got,), (want,)
+            again = wrapper(*args)
+            again = again if name == "recover_bucket" else (again,)
+            err = err_ref = 0.0
+            for g, w, g2, ref, (bar, floor) in zip(got, want, again, refs,
+                                                   FUSED_BARS[name]):
+                if g.dtype != torch.float64 or g.shape != w.shape:
+                    raise AssertionError(f"{name} {label}: {g.dtype} "
+                                         f"{tuple(g.shape)} vs "
+                                         f"{tuple(w.shape)}")
+                if not bool((g == g2).all()):
+                    raise AssertionError(f"{name} {label}: two launches "
+                                         "differ")
+                gn = g.cpu().numpy()
+                e = float((g - w).abs().max())
+                er = float(np.abs(gn - ref).max())
+                for what, x, scale in (
+                        ("plain version", e, float(w.abs().max())),
+                        ("numpy reference", er, float(np.abs(ref).max()))):
+                    if not x <= bar * max(floor, scale):
+                        raise AssertionError(
+                            f"{name} {label}: {x} from the {what}, bar "
+                            f"{bar} * max({floor}, {scale})")
+                err, err_ref = max(err, e), max(err_ref, er)
+            t, tp = graph_pair(wrapper, PLAIN[name], args)
+            te, tpe = time_pair(wrapper, PLAIN[name], args)
+            log("kernel", name=name, shape=label,
+                args=[list(a.shape) + [str(a.dtype)[6:]] for a in args
+                      if isinstance(a, torch.Tensor)],
+                max_abs_err=err, max_abs_err_vs_numpy=err_ref,
+                bars=FUSED_BARS[name], ms=t, plain_ms=tp, eager_ms=te,
+                plain_eager_ms=tpe)
+            if label == FUSED_MAIN:
+                out[name] = {"max_abs_err": err,
+                             "max_abs_err_vs_numpy": err_ref, "ms": t,
+                             "plain_ms": tp, "eager_ms": te,
+                             "plain_eager_ms": tpe}
+    return out
+
+
 def node_boxes(prob, B: int, nfeat: int, rng):
     """Slot 0 is the root box; slots 1.. fix 1-3 binary z variables."""
     lb = np.tile(prob.lb, (B, 1))
@@ -494,7 +655,8 @@ def bounds_agree(label, out, ref, gaptol, what) -> tuple:
 
 
 def refine_phase(cases, rset, f64_outs):
-    """The refine tier: every request launches all four kernels.  A direct
+    """The refine tier, non-fused direction: every request launches the
+    probe kernel and the three df32 kernels.  A direct
     request must converge every slot, as the float64 tier does, with the
     same bounds, the same checks, and the same statuses and iterations
     (within 3) through the plain df32 route.  The Gamma=1 probe and the
@@ -502,7 +664,8 @@ def refine_phase(cases, rset, f64_outs):
     refine tier, on the CPU, fails 18 of the penalty request's 32 slots):
     their FAILED slots are counted, their OPTIMAL slots hold to the float64
     tier's and the plain route's bounds."""
-    launches, per_request, outs = drive(cases, rset, list(KERNELS))
+    launches, per_request, outs = drive(cases, rset,
+                                        ["cholesky_lanes", *DF32])
     plain = dataclasses.replace(rset, use_df32="off")
     for (label, dense, data, req, direct), out, f64, n in zip(
             cases, outs, f64_outs, per_request):
@@ -527,6 +690,46 @@ def refine_phase(cases, rset, f64_outs):
             max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_plain_route=devp,
             root_dobj=float(out.dobj[0]), root_dual_violation=viol)
     log("refine_path", launches=launches)
+    return launches, outs
+
+
+def fused_phase(cases, fset, f64_outs, refine_outs):
+    """The refine tier with the fused direction: every request launches the
+    three fused kernels, the probe kernel and bmm64 (X Rp, hoisted out of
+    the direction); the other kernels each request still launches are
+    logged.  A direct request must converge every slot with the same
+    checks, the non-fused refine path's statuses, and both that path's and
+    the float64 tier's bounds (2 * gaptol).  The probe and penalty requests
+    count their FAILED slots; their OPTIMAL slots hold to both bounds."""
+    launches, per_request, outs = drive(
+        cases, fset, [*FUSED, "cholesky_lanes", "bmm64"])
+    failed = int(SolverResultStatus.FAILED)
+    for (label, dense, data, req, direct), out, f64, nonfused, n in zip(
+            cases, outs, f64_outs, refine_outs, per_request):
+        viol = None
+        if direct:
+            viol = check_solve(label, dense, out, req, fset.gaptol,
+                               fset.feastol, direct)
+        diff64, dev64 = bounds_agree(label, out, f64, fset.gaptol,
+                                     "the float64 tier")
+        diffr, devr = bounds_agree(label, out, nonfused, fset.gaptol,
+                                   "the non-fused refine path")
+        if direct and diffr:
+            raise AssertionError(f"{label}: {diffr} statuses differ from "
+                                 "the non-fused refine path")
+        log("fused_solve", request=label, B=int(out.status.shape[0]),
+            iters=out.iters, f64_iters=out.f64_iters,
+            failed=int((out.status == failed).sum()),
+            nonfused_iters=nonfused.iters,
+            nonfused_f64_iters=nonfused.f64_iters,
+            nonfused_failed=int((nonfused.status == failed).sum()),
+            f64_tier_iters=f64.iters, launches=n,
+            other_kernels_launched=[k for k in KERNELS if n[k] and k not in
+                                    (*FUSED, "cholesky_lanes", "bmm64")],
+            status_diff_vs_f64_tier=diff64, status_diff_vs_nonfused=diffr,
+            max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_nonfused=devr,
+            root_dobj=float(out.dobj[0]), root_dual_violation=viol)
+    log("fused_path", launches=launches)
     return launches
 
 
@@ -566,20 +769,21 @@ def probe_timing_phase(cases, settings) -> None:
             wall_s=walls)
 
 
-def cpu_reference(device, settings, rset) -> None:
+def cpu_reference(device, routes) -> None:
     """A small instance on the card against the same solve on the CPU
-    (the path the tests hold against JAX), float64 tier and refine tier."""
+    (the path the tests hold against JAX), one per route."""
     prob = cardinality_least_squares(8, 16, 3, seed=1)
     dense = densify(prob)
     lb, ub = node_boxes(prob, 8, 8, np.random.default_rng(1))
     req = request(prob, lb, ub, "direct")
     cpu_data, dev_data = build_ipm_data(dense, "cpu"), build_ipm_data(dense,
                                                                       device)
-    for tier, s in (("off", settings), ("refine", rset)):
+    for route, s in routes.items():
         ref = ipm_solve(cpu_data, *req, settings=s)
         out = ipm_solve(dev_data, *req, settings=s)
-        dev = agree(f"small CLS {tier}", out, ref, s.gaptol, "the CPU solve")
-        log("cpu_reference", instance="cls_8x16", B=8, phase32=tier,
+        dev = agree(f"small CLS {route}", out, ref, s.gaptol,
+                    "the CPU solve")
+        log("cpu_reference", instance="cls_8x16", B=8, route=route,
             iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
 
@@ -613,9 +817,11 @@ def profile_one(label, data, req, settings, route) -> None:
         torch.cuda.set_sync_debug_mode("default")
     syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
              if "synchronizing CUDA operation" in str(w.message)]
+    launches = sum(e.count for e in kern)
     log("profile", request=label, route=route, iters=out.iters,
         f64_iters=out.f64_iters, profiled_wall_s=wall, device_busy_us=busy,
-        kernel_launches=sum(e.count for e in kern), host_syncs=len(syncs),
+        kernel_launches=launches, launches_per_iter=launches / out.iters,
+        host_syncs=len(syncs),
         sync_sites=sorted(collections.Counter(syncs).items()),
         top_ops=[{"op": e.key, "self_device_us": dev_us(e), "calls": e.count}
                  for e in ops[:10]],
@@ -645,30 +851,31 @@ def main() -> int:
         refine=dataclasses.asdict(rset))
 
     build_phase()
-    kern = {"cholesky_lanes": cholesky_phase(device), **df32_phase(device)}
+    kern = {"cholesky_lanes": cholesky_phase(device), **df32_phase(device),
+            **fused_kernel_phase(device)}
     cases = make_cases(device)
-    f64_launches, f64_outs = f64_phase(cases, settings)
-    refine_launches = refine_phase(cases, rset, f64_outs)
-    timing_phase(cases, {"refine_kernels": rset,
-                         "refine_plain": dataclasses.replace(
-                             rset, use_df32="off"),
-                         "f64": settings})
+    fset = dataclasses.replace(rset, fused_direction="on")
+    routes = {"refine_fused": fset, "refine_kernels": rset,
+              "refine_plain": dataclasses.replace(rset, use_df32="off"),
+              "f64": settings}
+    paths = {}
+    paths["f64"], f64_outs = f64_phase(cases, settings)
+    paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
+    paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
+    timing_phase(cases, routes)
     probe_timing_phase(cases, settings)
-    cpu_reference(device, settings, rset)
+    cpu_reference(device, {"f64": settings, "refine_kernels": rset,
+                           "refine_fused": fset})
     for label, _, data, req, _ in cases:
-        for route, s in (("refine_kernels", rset),
-                         ("refine_plain",
-                          dataclasses.replace(rset, use_df32="off")),
-                         ("f64", settings)):
+        for route, s in routes.items():
             profile_one(label, data, req, s, route)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"scipsdp_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
-        "launches": f64_launches[name] + refine_launches[name],
-        "launches_by_path": {"f64": f64_launches[name],
-                             "refine": refine_launches[name]},
+        "launches": sum(p[name] for p in paths.values()),
+        "launches_by_path": {k: p[name] for k, p in paths.items()},
         **kern[name]} for name, (_, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

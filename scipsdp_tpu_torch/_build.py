@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``build/scipsdp_tpu_torch/<hash>/lib<name>.so`` beside the package (the
 hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  :func:`build` compiles several sources at once,
+loaded with ``ctypes``; :func:`launch` calls its ``<name>_f64`` entry
+point on the current CUDA stream.  :func:`build` compiles several sources at once,
 one nvcc process each.  Sources come only from this package; nothing is
 fetched.  A failed build raises with nvcc's output.  The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept in ``build.log``
@@ -19,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "scipsdp_tpu_torch"
@@ -79,3 +82,23 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` unless its library exists, then load it."""
     build(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, argtypes: tuple):
+    fn = getattr(load(name), f"{name}_f64")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes: tuple, dev: torch.device, *args) -> None:
+    """Call ``<name>_f64(*args, stream)`` of ``csrc/<name>.cu`` (declared
+    with ``argtypes``, the stream last, returning a CUDA error code) on the
+    current stream of CUDA device ``dev``; raise on a non-zero error."""
+    with torch.cuda.device(dev):
+        err = _entry(name, argtypes)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

@@ -30,7 +30,6 @@ reset).  The solver uses the plain versions on any device when
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -57,19 +56,12 @@ def contract_long64_plain(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, M.to(_F64), v.to(_F64))
 
 
-@functools.lru_cache(maxsize=None)
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_f64")
-    if name == "bmm64":
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {   # of each C entry point <name>_f64, the stream last
+    "bmm64": (_P, _P, _P, ctypes.c_longlong, _I, _P),
+    "contract_short64": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "contract_long64": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
 
 
 def _on_cpu(name: str, *xs: torch.Tensor) -> bool:
@@ -88,17 +80,6 @@ def _on_cpu(name: str, *xs: torch.Tensor) -> bool:
             raise TypeError(f"{name}: float32/float64 operands only, got "
                             f"{x.dtype}")
     return False
-
-
-def _launch(name: str, dev: torch.device, *args) -> None:
-    """Call the kernel library's entry point on the current stream of
-    ``dev`` and raise on a CUDA error."""
-    with torch.cuda.device(dev):
-        err = getattr(_lib(name), f"{name}_f64")(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 def _int32(name: str, *dims: int) -> None:
@@ -122,8 +103,8 @@ def bmm64(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     if G == 0:
         return out
     _int32("bmm64", G)
-    _launch("bmm64", A.device, A.data_ptr(), B.data_ptr(), out.data_ptr(),
-            G, n)
+    _build.launch("bmm64", _ARGTYPES["bmm64"], A.device, A.data_ptr(),
+                  B.data_ptr(), out.data_ptr(), G, n)
     bmm64.launches += 1
     return out
 
@@ -146,8 +127,9 @@ def _contract(wrapper, M: torch.Tensor, v: torch.Tensor, short: bool):
     if out.numel() == 0:
         return out
     _int32(name, G, J, F, M.numel())
-    _launch(name, v.device, M.data_ptr(), v.data_ptr(), out.data_ptr(),
-            G, J, F, int(M.dtype == torch.float32), int(M.dim() == 3))
+    _build.launch(name, _ARGTYPES[name], v.device, M.data_ptr(), v.data_ptr(),
+                  out.data_ptr(), G, J, F, int(M.dtype == torch.float32),
+                  int(M.dim() == 3))
     wrapper.launches += 1
     return out
 

@@ -3,7 +3,8 @@
 Counterpart of ``scipsdp_tpu/ops/ipm.py`` in its float64 configuration
 (``phase32="off"``) and its "refine" tier (``phase32="refine"``: float32
 factorizations, float64 assembly and refined Schur solves, with the exact
-contractions of ``ops/df32.py``): one solve over a *batch* of SDPs that
+contractions of ``ops/df32.py`` and the fused direction of
+``ops/fused.py``): one solve over a *batch* of SDPs that
 share problem data (A, A_0, LP rows) and differ per instance in bounds,
 objective and cuts — the shape of branch-and-bound node relaxations.
 
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from scipsdp_tpu_torch.models.problem import DenseSDPData
-from scipsdp_tpu_torch.ops import df32, kernels
+from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.eigen import (
     cholesky,
     gersh_step_from_ymat,
@@ -366,10 +367,6 @@ def _check_supported(settings: IPMSettings, warm) -> None:
         raise NotImplementedError(
             f"ipm_solve: phase32={settings.phase32!r} (the plain float32 "
             "direction tiers) is not ported yet; 'refine' and 'off' are")
-    if settings.fused_direction == "on":
-        raise NotImplementedError(
-            "ipm_solve: fused_direction='on' waits for the port of the three "
-            "fused direction kernels ('auto' runs the non-fused direction)")
     if settings.use_pallas:
         raise NotImplementedError(
             "ipm_solve: use_pallas (schur_wwt, cholesky, tril_inverse "
@@ -411,8 +408,10 @@ def ipm_solve(
     (``nan32_policy="repair"``) or for an instance that stalled in the
     tier.  Its exact contractions go through the ``ops/df32.py`` kernels
     unless ``use_df32="off"`` (their plain versions; either way on CPU
-    tensors).  ``fused_direction="auto"`` runs the non-fused direction;
-    "on" raises until the fused kernels are ported.
+    tensors).  With ``use_df32`` not "off", ``fused_direction`` "auto" or
+    "on" runs the tier's Newton direction through the three fused kernels
+    of ``ops/fused.py`` (plain versions on CPU tensors), "off" through the
+    separate contractions; outside the refine tier it is inert, as in JAX.
     """
     _check_supported(settings, (warm_y, warm_mask, warm_X, ip_point))
     dtype = torch.float64
@@ -534,6 +533,11 @@ def ipm_solve(
             if settings.use_df32 != "off" else
             (df32.bmm64_plain, df32.contract_short64_plain,
              df32.contract_long64_plain))
+    # fused direction (JAX ipm.py:724 without its TPU VMEM gates): the
+    # rhs-assembly / Schur-solve / recovery chain as three kernels per
+    # direction and bucket (ops/fused.py)
+    use_fused = (use_refine and settings.use_df32 != "off"
+                 and settings.fused_direction != "off")
 
     def comp_gap(st: IPMState):
         gsdp = bsum([torch.where(pad_outer[t], st.X[t] * st.S[t], 0.0)
@@ -941,7 +945,8 @@ def ipm_solve(
 
     def iter_products_refine(st: IPMState, ev: EvalOut):
         """float32-factorization / float64-assembly Mehrotra pass (the JAX
-        package's "refine" tier, non-fused direction).
+        package's "refine" tier, with the fused or the non-fused
+        direction).
 
         Factor-class work (Cholesky, triangular inverse, W features, Schur
         Gram, step-rule congruences and probes) runs in float32.
@@ -953,7 +958,8 @@ def ipm_solve(
         float32 back-solve) against the float32 feature Gram plus
         regularization.  The exact contractions are ``mm_f64``,
         ``short64`` and ``long64`` (the df32 kernels, or their plain
-        versions)."""
+        versions); with ``use_fused`` the direction's assembly, Schur solve
+        and recovery are the three kernels of ``ops/fused.py``."""
         f32 = torch.float32
         X32 = tuple(st.X[t].to(f32) for t in bidx)
 
@@ -977,8 +983,10 @@ def ipm_solve(
         Lsinv = tuple(v[1] for v in LXS)
         # S^-1 is float32-VALUED (a preconditioner-quality inverse), upcast
         # exactly: exactness is only needed in the cancelling products
-        Sinv64 = tuple(sym(torch.einsum("xkba,xkbc->xkac", Lsinv[t],
-                                        Lsinv[t])).to(dtype) for t in bidx)
+        Sinv32 = tuple(sym(torch.einsum("xkba,xkbc->xkac", Lsinv[t],
+                                        Lsinv[t])) for t in bidx)
+        if not use_fused:
+            Sinv64 = tuple(Sinv32[t].to(dtype) for t in bidx)
 
         def astar_f64(P):
             """sum_t einsum('kjab,xkba->xj', A_t, P_t)."""
@@ -1050,11 +1058,41 @@ def ipm_solve(
 
         # X Rp is direction-independent: hoisted out of direction()
         XRp = tuple(mm_f64(st.X[t], ev.Rp[t]) for t in bidx)
+        if use_fused:
+            # the fused kernels' other direction-independent operand
+            reg_b = reg64[:, None].expand(B, mp).contiguous()
+            nrefine = max(int(settings.schur_refine), 0)
+
+        def direction_fused(Rc, rcl, rclb, rcub):
+            """Newton direction through the fused kernels (JAX
+            ``direction_fused``): per bucket ONE rhs assembly and ONE
+            recovery, plus ONE Schur solve with its refinement passes —
+            the math of the non-fused direction below.  The recovery
+            zeroes the padding of dS and dX itself."""
+            rhs_sdp = bsum([fused.rhs_bucket(data.A[t], Rc[t], XRp[t],
+                                             Sinv32[t]) for t in bidx])
+            rhs = lp_rhs(st, ev, rhs_sdp, lambda w: long64(GallT, w),
+                         rcl, rclb, rcub)
+            dy = fused.schur_solve_fused(
+                Wall, torch.where(pre.fix, 0.0, rhs), Minv, dsc64, diag64,
+                reg_b, pre.fix, nrefine)
+            dS, dX = [], []
+            for t in bidx:
+                dSt, dXt = fused.recover_bucket(data.A[t], dy, ev.Rp[t],
+                                                Rc[t], st.X[t], Sinv32[t],
+                                                pad_outer[t])
+                dS.append(dSt)
+                dX.append(sym(dXt))
+            dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
+                st, ev, dy, long64(Gall_c, dy), rcl, rclb, rcub)
+            return dy, tuple(dX), tuple(dS), dxl, dsl, dxlb, dslb, dxub, dsub
 
         def direction(Rc, rcl, rclb, rcub):
             """Newton direction with exact assembly and recovery (float64
             in and out; only the Schur back-solve passes through
             float32)."""
+            if use_fused:
+                return direction_fused(Rc, rcl, rclb, rcub)
             PsiSinv = [mm_f64(Rc[t] - XRp[t], Sinv64[t]) for t in bidx]
             rhs = lp_rhs(st, ev, astar_f64(PsiSinv),
                          lambda w: long64(GallT, w), rcl, rclb, rcub)

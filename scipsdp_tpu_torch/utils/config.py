@@ -90,6 +90,10 @@ class IPMSettings:
                                    # tier's exact contractions
     fused_direction: str = "auto"  # fused direction kernels (rhs assembly,
                                    # Schur solve + refinement, recovery)
+                                   # in the refine tier with use_df32 not
+                                   # "off": "auto" and "on" fuse, "off"
+                                   # runs the separate contractions; inert
+                                   # outside the refine tier
     step_rule: str = "auto"        # PSD max-step: "probe" (Gershgorin base
                                    # + ONE stacked f32 Cholesky over a
                                    # geometric candidate ladder, certified

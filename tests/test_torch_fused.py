@@ -1,0 +1,244 @@
+"""scipsdp_tpu_torch.ops.fused on the CPU: the plain version of each fused
+direction kernel against the JAX package's kernel math and against float64
+numpy references, and the wrappers' CPU dispatch.
+
+The JAX math runs eagerly, as tests/test_fused.py runs it (under
+``jax.disable_jit()``: XLA:CPU's compiled code FMA-contracts the error-free
+transforms away), with hi/lo pairs made by ``split64`` and read back by
+``join64``.  Inputs and bars are test_fused.py's: K1 atol 1e-12 max|ref|;
+K2 atol 1e-10 max|ref| against the exact solve of the live subsystem; K3
+1e-12 max(1, max|ref|) for dS and 1e-11 max(1, max|ref|) for dX.  Beside
+those inputs (B=4, K=2, n=13, mp=9, F=37) each kernel runs at the main
+path's block shape (K=1, n=65, mp=66, F=4290: cardinality_least_squares(32,
+64, 8)), K3 with a zeroed padding (blocks of two sizes in one bucket) and K2
+with several fixed rows.
+
+The CUDA kernels run only on the card: ``python3 chip_smoke.py`` holds each
+against the same plain version there.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import scipsdp_tpu.ops.fused as jfused
+from scipsdp_tpu_torch import _build
+from scipsdp_tpu_torch.ops import fused
+
+KERNELS = ("rhs_bucket", "schur_solve_fused", "recover_bucket")
+NREFINE = 3
+# (B, K, n, mp, F): test_fused.py's inputs, and the main path's block shape
+SHAPES = {"test_fused": (4, 2, 13, 9, 37), "main_block": (2, 1, 65, 66, 4290)}
+
+
+def split64(x):
+    hi = np.asarray(x).astype(np.float32)
+    return hi, (np.asarray(x) - hi.astype(np.float64)).astype(np.float32)
+
+
+def join64(hi, lo):
+    return np.asarray(hi).astype(np.float64) + np.asarray(lo).astype(
+        np.float64)
+
+
+def _run(mathfn, *args):
+    """The JAX kernel math, eagerly (per-op IEEE float32)."""
+    with jax.disable_jit():
+        out = mathfn(*args)
+    return tuple(np.asarray(o) for o in out)
+
+
+def _sym(a):
+    return 0.5 * (a + np.swapaxes(a, -1, -2))
+
+
+def _t(x):
+    return torch.as_tensor(np.ascontiguousarray(x))
+
+
+def _rhs_inputs(B, K, n, mp, seed):
+    rng = np.random.default_rng(seed)
+    A = _sym(rng.standard_normal((K, mp, n, n)))
+    Rc = rng.standard_normal((B, K, n, n)) * 1e-6    # corrector-scale
+    XRp = rng.standard_normal((B, K, n, n)) * 1e-6
+    Sinv = _sym(rng.standard_normal((B, K, n, n))).astype(np.float32)
+    return A, Rc, XRp, Sinv
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_rhs_bucket_matches_jax_math(shape):
+    B, K, n, mp, _ = SHAPES[shape]
+    A, Rc, XRp, Sinv = _rhs_inputs(B, K, n, mp, seed=7)
+    P = np.einsum("zkac,zkcd->zkad", Rc - XRp, Sinv.astype(np.float64))
+    want = np.einsum("kjpq,zkqp->zj", A, P)
+    jax_got = join64(*_run(jfused._rhs_math, *split64(A), *split64(Rc),
+                           *split64(XRp), jnp.asarray(Sinv)))
+    got = fused.rhs_bucket_plain(_t(A), _t(Rc), _t(XRp), _t(Sinv))
+    assert got.dtype == torch.float64 and got.shape == (B, mp)
+    atol = 1e-12 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+    np.testing.assert_allclose(got.numpy(), jax_got, rtol=0, atol=atol)
+
+
+def _schur_inputs(B, mp, F, nfix, seed):
+    """test_fused.py's K2 inputs with the last ``nfix`` rows fixed, the
+    preconditioner built exactly as the refine tier builds it, and the
+    exact float64 solve of each live subsystem."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((B, mp, F)).astype(np.float32)
+    diag = np.abs(rng.standard_normal((B, mp))) * 1e3
+    reg = np.full((B,), 1e-7)
+    fix = np.zeros((B, mp), bool)
+    fix[:, mp - nfix:] = True
+    rhs = rng.standard_normal((B, mp))
+    W64 = W.astype(np.float64)
+    want = np.zeros((B, mp))
+    for b in range(B):
+        live = ~fix[b]
+        M = (W64[b] @ W64[b].T + np.diag(diag[b])
+             + reg[b] * np.eye(mp))[np.ix_(live, live)]
+        want[b, live] = np.linalg.solve(M, rhs[b, live])
+    Mfull = (np.einsum("bif,bjf->bij", W64, W64)
+             + np.eye(mp)[None] * diag[:, :, None]
+             + reg[:, None, None] * np.eye(mp)[None])
+    Mfull = np.where(fix[:, :, None] | fix[:, None, :], 0.0, Mfull)
+    Mfull += np.eye(mp)[None] * fix[:, :, None]
+    dsc = 1.0 / np.sqrt(np.maximum(np.einsum("bii->bi", Mfull), 1e-30))
+    Ms = Mfull * dsc[:, :, None] * dsc[:, None, :]
+    Minv = np.linalg.inv(Ms.astype(np.float32)).astype(np.float32)
+    regv = np.broadcast_to(reg[:, None], (B, mp))
+    return W, rhs, Minv, dsc, diag, regv, fix, want
+
+
+@pytest.mark.parametrize("shape,nfix", [("test_fused", 1), ("test_fused", 3),
+                                        ("main_block", 5)])
+def test_schur_solve_fused_matches_jax_math(shape, nfix):
+    B, _, _, mp, F = SHAPES[shape]
+    W, rhs, Minv, dsc, diag, reg, fix, want = _schur_inputs(B, mp, F, nfix,
+                                                            seed=7)
+    jax_got = join64(*_run(
+        jfused._schur_math, NREFINE, jnp.asarray(W), *split64(rhs),
+        jnp.asarray(Minv), *split64(dsc), *split64(diag), *split64(reg),
+        jnp.asarray(fix.astype(np.float32))))
+    got = fused.schur_solve_fused_plain(
+        _t(W), _t(rhs), _t(Minv), _t(dsc), _t(diag), _t(reg), _t(fix),
+        NREFINE).numpy()
+    atol = 1e-10 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(jax_got, want, rtol=0, atol=atol)
+    assert (got[fix] == 0.0).all()
+
+
+def _recover_inputs(B, K, n, mp, seed, padded):
+    rng = np.random.default_rng(seed)
+    A = _sym(rng.standard_normal((K, mp, n, n)))
+    dy = rng.standard_normal((B, mp)) * 1e-3
+    Rp = rng.standard_normal((B, K, n, n)) * 1e-7
+    Rc = rng.standard_normal((B, K, n, n)) * 1e-6
+    X = _sym(rng.standard_normal((B, K, n, n)))
+    Sinv = _sym(rng.standard_normal((B, K, n, n))).astype(np.float32)
+    pad = np.ones((1, K, n, n), bool)
+    if padded:     # the bucket's last block is smaller: zero its padding
+        act = np.arange(n) < n - 4
+        pad[0, -1] = act[:, None] & act[None, :]
+    return A, dy, Rp, Rc, X, Sinv, pad
+
+
+@pytest.mark.parametrize("shape,padded", [("test_fused", False),
+                                          ("test_fused", True),
+                                          ("main_block", False)])
+def test_recover_bucket_matches_jax_math(shape, padded):
+    B, K, n, mp, _ = SHAPES[shape]
+    A, dy, Rp, Rc, X, Sinv, pad = _recover_inputs(B, K, n, mp, seed=7,
+                                                  padded=padded)
+    dS_want = np.where(pad, np.einsum("kjpq,zj->zkpq", A, dy) + Rp, 0.0)
+    dX_want = np.where(pad, np.einsum(
+        "zkac,zkcd->zkad", Rc - np.einsum("zkac,zkcd->zkad", X, dS_want),
+        Sinv.astype(np.float64)), 0.0)
+    dyh, dyl = split64(dy)
+    out = _run(jfused._recover_math, *split64(A),
+               dyh.reshape(B, mp, 1, 1), dyl.reshape(B, mp, 1, 1),
+               *split64(Rp), *split64(Rc), *split64(X), jnp.asarray(Sinv),
+               jnp.asarray(np.broadcast_to(pad, (B, K, n, n))
+                           .astype(np.float32)))
+    dS, dX = fused.recover_bucket_plain(_t(A), _t(dy), _t(Rp), _t(Rc), _t(X),
+                                        _t(Sinv), _t(pad))
+    sbar = 1e-12 * max(1.0, np.abs(dS_want).max())
+    xbar = 1e-11 * max(1.0, np.abs(dX_want).max())
+    for got, jax_got, want, bar in ((dS, join64(out[0], out[1]), dS_want,
+                                     sbar),
+                                    (dX, join64(out[2], out[3]), dX_want,
+                                     xbar)):
+        assert got.dtype == torch.float64 and got.shape == (B, K, n, n)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=bar)
+        np.testing.assert_allclose(jax_got, want, rtol=0, atol=bar)
+    assert (dS.numpy()[:, ~pad[0]] == 0).all()
+    assert (dX.numpy()[:, ~pad[0]] == 0).all()
+
+
+def test_cpu_wrappers_are_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch; a per-instance (B, K, n, n) pad gives the same as the
+    shared one."""
+    B, K, n, mp, F = SHAPES["test_fused"]
+    A, Rc, XRp, Sinv = (_t(x) for x in _rhs_inputs(B, K, n, mp, seed=3))
+    W, rhs, Minv, dsc, diag, reg, fix, _ = (
+        _t(x) for x in _schur_inputs(B, mp, F, 2, seed=3))
+    _, dy, Rp, _, X, _, pad = (_t(x) for x in _recover_inputs(
+        B, K, n, mp, seed=3, padded=True))
+    before = [getattr(fused, k).launches for k in KERNELS]
+    pairs = [
+        (fused.rhs_bucket(A, Rc, XRp, Sinv),
+         fused.rhs_bucket_plain(A, Rc, XRp, Sinv)),
+        (fused.schur_solve_fused(W, rhs, Minv, dsc, diag, reg, fix, NREFINE),
+         fused.schur_solve_fused_plain(W, rhs, Minv, dsc, diag, reg, fix,
+                                       NREFINE)),
+        *zip(fused.recover_bucket(A, dy, Rp, Rc, X, Sinv, pad),
+             fused.recover_bucket_plain(A, dy, Rp, Rc, X, Sinv, pad)),
+        *zip(fused.recover_bucket(A, dy, Rp, Rc, X, Sinv,
+                                  pad.expand(B, K, n, n).contiguous()),
+             fused.recover_bucket_plain(A, dy, Rp, Rc, X, Sinv, pad)),
+    ]
+    for got, want in pairs:
+        assert got.dtype == torch.float64
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert [getattr(fused, k).launches for k in KERNELS] == before
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """A device that is neither CPU nor CUDA, or operands on two devices,
+    raise instead of falling back."""
+    B, K, n, mp, F = 2, 1, 5, 4, 7
+
+    def meta(*shape, dtype=torch.float64):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    A, blk = meta(K, mp, n, n), meta(B, K, n, n)
+    S32 = meta(B, K, n, n, dtype=torch.float32)
+    v, fix = meta(B, mp), meta(B, mp, dtype=torch.bool)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.rhs_bucket(A, blk, blk, S32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.schur_solve_fused(meta(B, mp, F, dtype=torch.float32), v,
+                                meta(B, mp, mp, dtype=torch.float32), v, v, v,
+                                fix, NREFINE)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.recover_bucket(A, v, blk, blk, blk, S32,
+                             meta(K, n, n, dtype=torch.bool))
+    with pytest.raises(ValueError, match="different devices"):
+        fused.rhs_bucket(A, blk, blk, torch.zeros((B, K, n, n)))
+
+
+def test_kernel_sources_and_build_paths():
+    """Each kernel has its own source with a plain C entry point and no
+    library call, built for sm_90a into its own hashed directory."""
+    for name in KERNELS:
+        p = _build.library_path(name)
+        assert p.name == f"lib{name}.so" and p.parent.parent == _build.BUILD_ROOT
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}_f64(' in src
+        assert "cublas" not in src.lower() and "cusolver" not in src.lower()
+    assert len({_build.library_path(k).parent for k in KERNELS}) == 3
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -166,12 +166,13 @@ def test_lanes_chol_flag_on_cpu_uses_plain_version():
 ])
 def test_unported_paths_raise(kw, extra):
     """Every path the port does not carry yet raises.  phase32="refine" is
-    ported, and use_df32="on" is inert outside it, as in JAX: those two
-    cases solve."""
+    ported, and use_df32="on" and fused_direction="on" are inert outside
+    it, as in JAX: those three cases solve."""
     _, _, tdata = problem("cls")
     b, lb, ub = node_boxes(problem("cls")[0], 2)
     settings = tcfg.IPMSettings(**(pinned("probe") | kw))
-    if kw in ({"phase32": "refine"}, {"use_df32": "on"}):
+    if kw in ({"phase32": "refine"}, {"use_df32": "on"},
+              {"fused_direction": "on"}):
         out = tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
         assert out.status.tolist() == [1, 1]
         assert out.f64_iters <= out.iters
