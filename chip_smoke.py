@@ -7,13 +7,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions; no CUDA device means exit 2 before any work.
-2. build: the seven kernels of ``scipsdp_tpu_torch/csrc`` with nvcc, one
+2. build: the eleven kernels of ``scipsdp_tpu_torch/csrc`` with nvcc, one
    process per source, all started together.
 3. kernel checks, each kernel against its plain PyTorch version on the
    same inputs, timed with CUDA events in turns after warm-up (median of
    REPS samples of LAUNCHES back-to-back calls: "eager" times, which
-   include the host's launch cost; the df32 and fused kernels also as
-   device time, the LAUNCHES calls replayed from one CUDA graph):
+   include the host's launch cost; all but ``cholesky_lanes`` also as
+   device time, the LAUNCHES calls replayed from one CUDA graph), beside
+   the one PyTorch library call that computes the same function where
+   there is one (``library_ms``; the port never calls it) and the least
+   time the card could take for the work (``bound_ms``: bytes over 3.35
+   TB/s or FLOPs over 67 TFLOP/s, whichever is larger):
    ``cholesky_lanes`` at the probe shapes (rtol and atol 2e-4, the bar of
    the JAX package's lanes-Cholesky test; a non-PD matrix NaNs its own
    factor only); ``bmm64``, ``contract_short64`` and ``contract_long64``
@@ -23,7 +27,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes
    and tests/test_fused.py's, against their plain versions and against
    float64 numpy references (the exact solve of the live subsystem for
-   the Schur solve) at tests/test_fused.py's bars (FUSED_BARS).
+   the Schur solve) at tests/test_fused.py's bars (FUSED_BARS);
+   ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
+   at the float32 tiers' shapes for cls_32 B=32, cls_64 B=8 and mkp_10
+   B=32, at tests/test_pallas.py's and tests/test_lanes_chol.py's shapes,
+   and at n = 300 (the device-memory path), against their plain versions
+   and float64 numpy references at those tests' bars (PALLAS_BARS), NaN
+   per matrix, two launches bit for bit.
 4. float64 path: batched interior-point relaxation solves through
    ``ipm_solve`` with the device's resolved settings (phase32="off", probe
    step rule with the probe kernel): three requests of 32
@@ -47,22 +57,39 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    checks, and match the non-fused refine path's statuses and both it and
    the float64 tier in bounds (2 * gaptol); the probe and penalty requests
    count their FAILED slots.
-7. timing: per request the four routes — refine with the fused direction,
+7. pallas paths: the same four requests through the float32 tier
+   (phase32="on") and the fused refine tier, both with use_pallas=True:
+   every request must launch ``cholesky``, ``tril_inverse`` and
+   ``schur_wwt`` and the probe kernel, the refine route also ``bmm64`` and
+   the three fused kernels.  A direct request must be all OPTIMAL, pass
+   the checks, match the same route with use_pallas=False in statuses
+   (iterations within 2) and both it and the float64 tier in bounds
+   (2 * gaptol); the probe and penalty requests count their FAILED slots.
+   phase32="lite" runs once, on cls_32/direct, and may FAIL slots.
+8. TF32 check: cls_32/direct through both pallas routes with the caller's
+   ``allow_tf32`` on must equal the solve with it off (statuses,
+   iterations, dobj) and leave the flag on.
+9. timing: per request the four routes — refine with the fused direction,
    refine with the df32 kernels, refine with their plain versions, the
-   float64 tier — in turns; then the float64 path's probe kernel against
-   the plain probe.
-8. card against CPU: a small CLS instance, float64 tier and refine tier
-   (non-fused and fused).
-9. profile: per request and route one torch.profiler pass (device busy
+   float64 tier — in turns (ROUTE_ROUNDS rounds); on the direct requests
+   the pallas routes, the float32 tier on library factors, the fused
+   refine tier and the float64 tier in turns (PALLAS_ROUNDS); then the
+   float64 path's probe kernel against the plain probe.
+10. card against CPU: a small CLS instance, float64 tier, refine tier
+   (non-fused and fused) and the on_pallas route.
+11. profile: per request and route one torch.profiler pass (device busy
    time, kernel launches in all and per iteration, the ops with the most
    device time) and the host syncs of one solve by source line (CUDA sync
-   debug mode).
+   debug mode); the pallas routes and the "on" tier on library factors
+   on the direct requests.
 
-The kernel launch counters are set to 0 just before the float64, the
-refine and the fused path each, and read just after.  The line before the
+The kernel launch counters are set to 0 just before each path (float64,
+refine, fused, on_pallas, refine_pallas, lite_pallas) and read just
+after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
-(TF32 off for matmul and cuDNN).
+(TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
+run takes about 10 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -98,15 +125,56 @@ KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
     "schur_solve_fused": (fused.schur_solve_fused,
                           "scipsdp_tpu/ops/fused.py:304"),
     "recover_bucket": (fused.recover_bucket, "scipsdp_tpu/ops/fused.py:381"),
+    "cholesky": (kernels.cholesky, "scipsdp_tpu/ops/pallas_kernels.py:142"),
+    "tril_inverse": (kernels.tril_inverse,
+                     "scipsdp_tpu/ops/pallas_kernels.py:154"),
+    "schur_wwt": (kernels.schur_wwt, "scipsdp_tpu/ops/pallas_kernels.py:168"),
+    "chol_inverse_lanes": (kernels.chol_inverse_lanes,
+                           "scipsdp_tpu/ops/pallas_kernels.py:353"),
 }
 PLAIN = {"bmm64": df32.bmm64_plain,
          "contract_short64": df32.contract_short64_plain,
          "contract_long64": df32.contract_long64_plain,
          "rhs_bucket": fused.rhs_bucket_plain,
          "schur_solve_fused": fused.schur_solve_fused_plain,
-         "recover_bucket": fused.recover_bucket_plain}
+         "recover_bucket": fused.recover_bucket_plain,
+         "cholesky": kernels.cholesky_plain,
+         "tril_inverse": kernels.tril_inverse_plain,
+         "schur_wwt": kernels.schur_wwt_plain,
+         "chol_inverse_lanes": kernels.chol_inverse_lanes_plain}
 DF32 = ("bmm64", "contract_short64", "contract_long64")
 FUSED = ("rhs_bucket", "schur_solve_fused", "recover_bucket")
+PALLAS = ("cholesky", "tril_inverse", "schur_wwt")     # the solver's three
+# the per-matrix float32 kernels' cases: (label, leading shape, n); the X/S
+# stack (B slots x 2 blocks) and the Schur factor (B, mp, mp) of the float32
+# tiers at cls_32 B=32 (the main path), cls_64 B=8 and mkp_10 B=32, then
+# tests/test_pallas.py's and tests/test_lanes_chol.py's shapes, then n =
+# 300 (device memory)
+TRI_SHAPES = [("cls_32 B=32 X/S", (32, 2), 65), ("cls_32 B=32 Schur", (32,), 66),
+              ("cls_64 B=8 X/S", (8, 2), 129), ("cls_64 B=8 Schur", (8,), 130),
+              ("mkp_10 B=32 X/S", (32, 2), 10), ("mkp_10 B=32 Schur", (32,), 46),
+              ("test_pallas", (4,), 20), ("test_pallas", (2,), 48),
+              ("test_pallas", (1,), 96), ("test_pallas", (1,), 128),
+              ("test_lanes_chol", (20,), 43), ("test_lanes_chol", (3, 4), 9),
+              ("device memory", (4,), 300)]
+# the Schur Gram's cases: (label, B, mp, F = K n^2 + LP rows)
+GRAM_SHAPES = [("cls_32 B=32", 32, 66, 4290), ("cls_64 B=8", 8, 130, 16770),
+               ("mkp_10 B=32", 32, 46, 101), ("test_pallas", 2, 35, 577),
+               ("test_pallas", 1, 8, 64), ("test_pallas", 3, 130, 1024),
+               ("test_pallas F-chunk", 1, 16, 1024)]
+PALLAS_MAIN = {"cholesky": "cls_32 B=32 X/S", "tril_inverse": "cls_32 B=32 X/S",
+               "chol_inverse_lanes": "cls_32 B=32 X/S",
+               "schur_wwt": "cls_32 B=32"}
+# tests/test_pallas.py's and tests/test_lanes_chol.py's bars: relative to
+# max |reference| (cholesky, tril_inverse, schur_wwt), or (rtol, atol)
+PALLAS_BARS = {"cholesky": 1e-4, "tril_inverse": 1e-4, "schur_wwt": 1e-5,
+               "chol_inverse_lanes": (3e-3, 3e-3)}
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
+# FLOP/s of float32 outside the tensor cores and of float64 on them (both
+# 67 T); the bound of a call is the larger of its bytes and its FLOPs over
+# these
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = 67e12
 # (leading shape, n) of the matrix stacks cholesky_lanes is checked and
 # timed at; (32, 10) and (8, 10) are the stacked probe ladders of the main
 # path (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
@@ -146,7 +214,9 @@ GAMMA = 1e3
 REPS = 25
 LAUNCHES = 10
 PROBE_PAIRS = 3      # float64 path: probe kernel vs plain probe
-ROUTE_ROUNDS = 8     # refine kernels / refine plain / float64, in turns
+ROUTE_ROUNDS = 6     # the refine routes and float64, in turns (cut from 8
+                     # to make room for the pallas routes' timing)
+PALLAS_ROUNDS = 6    # the pallas routes, their twins and float64
 
 
 def log(tag: str, **kw) -> None:
@@ -174,6 +244,50 @@ def spd_stack(rng, N: int, n: int) -> np.ndarray:
     return np.einsum("bij,bkj->bik", a, a) + n * np.eye(n)
 
 
+def work_flops(name: str, args) -> float:
+    """FLOPs of one call of kernel ``name`` on ``args`` (2 per
+    multiply-add; the triangular factorizations and inverses n^3/3 each)."""
+    if name in ("cholesky_lanes", "cholesky", "tril_inverse",
+                "chol_inverse_lanes"):
+        n = args[0].shape[-1]
+        per = 2 if name == "chol_inverse_lanes" else 1
+        return per * args[0].numel() * n / 3
+    if name == "schur_wwt":
+        mp, F = args[0].shape[-2:]
+        return args[0].numel() // (mp * F) * mp * (mp + 1) * F
+    if name == "bmm64":
+        return 2 * args[0].numel() * args[0].shape[-1]
+    if name in ("contract_short64", "contract_long64"):
+        J, F = args[0].shape[-2:]
+        return 2 * args[1].shape[0] * J * F
+    if name == "rhs_bucket":
+        A, Rc = args[0], args[1]
+        B, K, n = Rc.shape[0], A.shape[0], A.shape[-1]
+        return 2 * B * K * n**3 + 2 * B * A.shape[1] * K * n * n
+    if name == "schur_solve_fused":
+        B, mp, F = args[0].shape
+        nrefine = args[7]
+        return (nrefine + 1) * 2 * B * mp * mp + nrefine * 4 * B * mp * F
+    if name == "recover_bucket":
+        A, dy = args[0], args[1]
+        B, K, n = dy.shape[0], A.shape[0], A.shape[-1]
+        return 2 * B * A.shape[1] * K * n * n + 4 * B * K * n**3
+    raise KeyError(name)
+
+
+def kernel_bound(name: str, args, out) -> dict:
+    """The least time the card could take for one call of kernel ``name``
+    on ``args`` giving ``out``: its bytes (each input tensor read once,
+    each output written once) over the memory rate, or its FLOPs over the
+    peak rate, whichever is larger."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
+                 if isinstance(t, torch.Tensor))
+    tb, tf = nbytes / PEAK_BYTES, work_flops(name, args) / PEAK_FLOPS
+    return {"bound_ms": 1e3 * max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
 def event_ms(fn, args) -> float:
     """Device time per call over LAUNCHES back-to-back calls."""
     start = torch.cuda.Event(enable_timing=True)
@@ -186,25 +300,25 @@ def event_ms(fn, args) -> float:
     return start.elapsed_time(end) / LAUNCHES
 
 
-def graph_pair(fn, plain, args):
-    """Device ms per call of ``fn`` and ``plain``: LAUNCHES calls of each
-    captured in one CUDA graph, the two graphs replayed in turns (median of
+def graph_times(fns, args) -> list:
+    """Device ms per call of each of ``fns``: LAUNCHES calls of each
+    captured in one CUDA graph, the graphs replayed in turns (median of
     REPS replays), so no host launch cost enters."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):        # warm-up before capture
         for _ in range(2):
-            fn(*args)
-            plain(*args)
+            for f in fns:
+                f(*args)
     torch.cuda.current_stream().wait_stream(side)
     graphs = []
-    for f in (fn, plain):
+    for f in fns:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             for _ in range(LAUNCHES):
                 f(*args)
         graphs.append(g)
-    times = ([], [])
+    times = tuple([] for _ in fns)
     for _ in range(REPS):
         for g, acc in zip(graphs, times):
             start = torch.cuda.Event(enable_timing=True)
@@ -214,19 +328,19 @@ def graph_pair(fn, plain, args):
             end.record()
             end.synchronize()
             acc.append(start.elapsed_time(end) / LAUNCHES)
-    return float(np.median(times[0])), float(np.median(times[1]))
+    return [float(np.median(t)) for t in times]
 
 
-def time_pair(fn, plain, args):
-    """Median ms of ``fn`` and ``plain`` on ``args``, measured in turns."""
+def eager_times(fns, args) -> list:
+    """Median ms of each of ``fns`` on ``args``, measured in turns."""
     for _ in range(3):
-        fn(*args)
-        plain(*args)
-    ms, pms = [], []
+        for f in fns:
+            f(*args)
+    times = tuple([] for _ in fns)
     for _ in range(REPS):
-        ms.append(event_ms(fn, args))
-        pms.append(event_ms(plain, args))
-    return float(np.median(ms)), float(np.median(pms))
+        for f, acc in zip(fns, times):
+            acc.append(event_ms(f, args))
+    return [float(np.median(t)) for t in times]
 
 
 def build_phase() -> float:
@@ -240,9 +354,10 @@ def build_phase() -> float:
 
 
 def cholesky_phase(device) -> dict:
-    """Check and time cholesky_lanes against its plain version."""
+    """Check and time cholesky_lanes against its plain version and
+    ``torch.linalg.cholesky_ex`` (eager times)."""
     rng = np.random.default_rng(0)
-    worst, main_times = 0.0, None
+    worst, main = 0.0, None
     for lead, n in CHOL_SHAPES:
         N = int(np.prod(lead))
         A = torch.as_tensor(spd_stack(rng, N, n).reshape(lead + (n, n)),
@@ -265,15 +380,17 @@ def cholesky_phase(device) -> dict:
         if not bool((nan_mat == expect).all()):
             raise AssertionError(f"NaN pattern wrong at {(N, n)}: "
                                  f"{nan_mat.nonzero().flatten().tolist()}")
-        t, tp = time_pair(kernels.cholesky_lanes,
-                          kernels.cholesky_lanes_plain, (A,))
+        t, tp, tl = eager_times([kernels.cholesky_lanes,
+                                 kernels.cholesky_lanes_plain,
+                                 torch.linalg.cholesky_ex], (A,))
         log("kernel", name="cholesky_lanes", shape=list(lead) + [n, n],
-            max_abs_err=err, ms=t, plain_ms=tp, nan_own_matrix_only=True)
+            max_abs_err=err, ms=t, plain_ms=tp, library_ms=tl,
+            nan_own_matrix_only=True)
         worst = max(worst, err)
         if (lead, n) == CHOL_MAIN:
-            main_times = (t, tp)
-    return {"max_abs_err": worst, "ms": main_times[0],
-            "plain_ms": main_times[1]}
+            main = {"ms": t, "plain_ms": tp, "library_ms": tl,
+                    **kernel_bound("cholesky_lanes", (A,), L)}
+    return {"max_abs_err": worst, **main}
 
 
 def df32_cases(device):
@@ -342,7 +459,9 @@ def df32_cases(device):
 
 def df32_phase(device) -> dict:
     """Check and time the three df32 kernels against their plain
-    versions; returns the main-path entry of each."""
+    versions, and ``bmm64`` against ``torch.matmul`` (the contractions mix
+    float32 and float64 operands: no one library call computes them);
+    returns the main-path entry of each."""
     out = {}
     for name, label, args in df32_cases(device):
         wrapper = KERNELS[name][0]
@@ -359,16 +478,23 @@ def df32_phase(device) -> dict:
         rel = err / max(float(want.abs().max()), 1e-300)
         if not rel <= DF32_TOL:
             raise AssertionError(f"{name} {label}: relative error {rel}")
-        t, tp = graph_pair(wrapper, PLAIN[name], args)
-        te, tpe = time_pair(wrapper, PLAIN[name], args)
+        fns = [wrapper, PLAIN[name]]
+        lib = name == "bmm64" and args[1].dtype == torch.float64
+        if lib:
+            fns.append(torch.matmul)
+        t, tp, *tl = graph_times(fns, args)
+        te, tpe, *tle = eager_times(fns, args)
         log("kernel", name=name, shape=label,
             args=[list(a.shape) + [str(a.dtype)[6:]] for a in args],
             max_abs_err=err, max_rel_err=rel, ms=t, plain_ms=tp,
-            eager_ms=te, plain_eager_ms=tpe)
+            eager_ms=te, plain_eager_ms=tpe, library_ms=tl[0] if lib else None,
+            library_eager_ms=tle[0] if lib else None)
         if label == DF32_MAIN[name]:
             out[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": t,
                          "plain_ms": tp, "eager_ms": te,
-                         "plain_eager_ms": tpe}
+                         "plain_eager_ms": tpe,
+                         "library_ms": tl[0] if lib else None,
+                         **kernel_bound(name, args, got)}
     return out
 
 
@@ -439,7 +565,9 @@ def fused_cases(device):
 
 def fused_kernel_phase(device) -> dict:
     """Check and time the three fused kernels against their plain versions
-    and the numpy references; returns the main-path entry of each."""
+    and the numpy references (each chains several products over mixed
+    float32 and float64 operands: no one library call computes it);
+    returns the main-path entry of each."""
     out = {}
     for label, per_kernel in fused_cases(device):
         for name in FUSED:
@@ -476,8 +604,8 @@ def fused_kernel_phase(device) -> dict:
                             f"{name} {label}: {x} from the {what}, bar "
                             f"{bar} * max({floor}, {scale})")
                 err, err_ref = max(err, e), max(err_ref, er)
-            t, tp = graph_pair(wrapper, PLAIN[name], args)
-            te, tpe = time_pair(wrapper, PLAIN[name], args)
+            t, tp = graph_times([wrapper, PLAIN[name]], args)
+            te, tpe = eager_times([wrapper, PLAIN[name]], args)
             log("kernel", name=name, shape=label,
                 args=[list(a.shape) + [str(a.dtype)[6:]] for a in args
                       if isinstance(a, torch.Tensor)],
@@ -488,7 +616,126 @@ def fused_kernel_phase(device) -> dict:
                 out[name] = {"max_abs_err": err,
                              "max_abs_err_vs_numpy": err_ref, "ms": t,
                              "plain_ms": tp, "eager_ms": te,
-                             "plain_eager_ms": tpe}
+                             "plain_eager_ms": tpe, "library_ms": None,
+                             **kernel_bound(name, args, got)}
+    return out
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def pallas_cases(device):
+    """(label, {kernel: (args, float64 numpy reference, library call or
+    None, the matrix made indefinite or None)}) at TRI_SHAPES and
+    GRAM_SHAPES.  Positive definite inputs are tests/test_lanes_chol.py's
+    (a a^T + n I, symmetric, as the plain Cholesky symmetrizes); the
+    triangular inverse takes their float64 factors rounded to float32."""
+    rng = np.random.default_rng(3)
+    cases = []
+    for label, lead, n in TRI_SHAPES:
+        N = int(np.prod(lead))
+        A64 = spd_stack(rng, N, n)
+        L64 = np.linalg.cholesky(A64)
+        A = torch.as_tensor(A64.reshape(lead + (n, n)), dtype=torch.float32,
+                            device=device)
+        Lt = torch.as_tensor(L64.reshape(lead + (n, n)), dtype=torch.float32,
+                             device=device)
+        Linv64 = np.linalg.inv(L64.astype(np.float32).astype(np.float64))
+        eye = torch.eye(n, dtype=torch.float32, device=device).expand(Lt.shape)
+        cases.append((label, {
+            "cholesky": ((A,), L64, torch.linalg.cholesky_ex, N // 2),
+            "tril_inverse": ((Lt,), Linv64, lambda L, eye=eye: (
+                torch.linalg.solve_triangular(L, eye, upper=False)), N // 2),
+            "chol_inverse_lanes": ((A,), np.linalg.inv(L64), None, N // 2),
+        }))
+    for label, B, mp, F in GRAM_SHAPES:
+        W = rng.standard_normal((B, mp, F)).astype(np.float32)
+        W64 = W.astype(np.float64)
+        Wt = torch.as_tensor(W, device=device)
+        cases.append((label, {"schur_wwt": (
+            (Wt,), np.einsum("xif,xjf->xij", W64, W64),
+            lambda W: torch.bmm(W, W.mT), None)}))
+    return cases
+
+
+def pallas_check(name, label, args, ref, bad) -> tuple:
+    """One float32 kernel against its plain version and the numpy
+    reference at its bar; exact zeros above the diagonal; two launches
+    bit for bit; with ``bad``, NaN in that matrix of the stack only.
+    Returns (kernel output, max |kernel - plain|, max |kernel - numpy|)."""
+    wrapper = KERNELS[name][0]
+    before = wrapper.launches
+    got = wrapper(*args)
+    want = PLAIN[name](*args)
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 2:
+        raise AssertionError(f"{name}: no launch counted at {label}")
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{name} {label}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}")
+    if not same_bits(got, again):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    gn = got.double().cpu().numpy().reshape(ref.shape)
+    err = float((got - want).abs().max())
+    err_ref = float(np.abs(gn - ref).max())
+    bar = PALLAS_BARS[name]
+    if isinstance(bar, tuple):
+        np.testing.assert_allclose(gn, ref, rtol=bar[0], atol=bar[1],
+                                   err_msg=f"{name} {label} vs numpy")
+        torch.testing.assert_close(got, want, rtol=bar[0], atol=bar[1])
+    else:
+        scale = max(1.0, float(np.abs(ref).max())) if name == "schur_wwt" \
+            else float(np.abs(ref).max())
+        for what, x in (("plain version", err), ("numpy reference", err_ref)):
+            if not x <= bar * scale:
+                raise AssertionError(f"{name} {label}: {x} from the {what}, "
+                                     f"bar {bar} * {scale}")
+    if name != "schur_wwt":
+        if not bool((torch.triu(got, diagonal=1) == 0).all()):
+            raise AssertionError(f"{name} {label}: nonzero above the diagonal")
+        n = got.shape[-1]
+        flat = args[0].reshape(-1, n, n)
+        broken = flat.clone()
+        if name == "tril_inverse":
+            broken[bad, n - 1, 0] = float("nan")
+        else:
+            broken[bad] -= 4.0 * n * torch.eye(n, device=flat.device)
+        nan_mat = torch.isnan(wrapper(broken)).reshape(flat.shape[0], -1).any(1)
+        torch.cuda.synchronize()
+        expect = torch.zeros_like(nan_mat)
+        expect[bad] = True
+        if not bool((nan_mat == expect).all()):
+            raise AssertionError(f"{name} {label}: NaN pattern wrong: "
+                                 f"{nan_mat.nonzero().flatten().tolist()}")
+    return got, err, err_ref
+
+
+def pallas_kernel_phase(device) -> dict:
+    """Check and time the four float32 kernels against their plain
+    versions, the numpy references and (#2-#4) the library call that
+    computes the same function; returns the main-path entry of each."""
+    out = {}
+    for label, per_kernel in pallas_cases(device):
+        for name, (args, ref, library, bad) in per_kernel.items():
+            got, err, err_ref = pallas_check(name, label, args, ref, bad)
+            fns = [KERNELS[name][0], PLAIN[name]] + (
+                [library] if library else [])
+            t, tp, *tl = graph_times(fns, args)
+            te, tpe, *tle = eager_times(fns, args)
+            entry = {"max_abs_err": err, "max_abs_err_vs_numpy": err_ref,
+                     "ms": t, "plain_ms": tp, "eager_ms": te,
+                     "plain_eager_ms": tpe,
+                     "library_ms": tl[0] if library else None,
+                     "library_eager_ms": tle[0] if library else None,
+                     **kernel_bound(name, args, got)}
+            log("kernel", name=name, shape=label,
+                args=[list(a.shape) for a in args], bar=PALLAS_BARS[name],
+                **entry)
+            if label == PALLAS_MAIN[name]:
+                out[name] = entry
     return out
 
 
@@ -538,12 +785,13 @@ def make_cases(device):
 
 
 def timed(data, req, settings):
-    """Wall time of one solve, between two device synchronizations."""
+    """Wall time of one solve, between two device synchronizations, and
+    its output."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ipm_solve(data, *req, settings=settings)
+    out = ipm_solve(data, *req, settings=settings)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, out
 
 
 def dual_violation(dense, y: np.ndarray, lb, ub) -> float:
@@ -583,18 +831,18 @@ def check_solve(label, dense, out, req, gaptol, feastol, direct):
     return viol
 
 
-def agree(label, out, ref, gaptol, what):
-    """Same statuses, dobj within 2 * gaptol * (1 + |dobj|), iterations
-    within 3."""
+def agree(label, out, ref, gaptol, what, iters_tol=3, bar=None):
+    """Same statuses, dobj within ``bar`` (2 * gaptol unless given) *
+    (1 + |dobj|), iterations within ``iters_tol``."""
     st, st_ref = out.status.cpu().numpy(), ref.status.cpu().numpy()
     if not (st == st_ref).all():
         raise AssertionError(f"{label}: statuses differ from {what}")
     d, d_ref = out.dobj.cpu().numpy(), ref.dobj.cpu().numpy()
     dev = np.abs(d - d_ref) / (1 + np.abs(d_ref))
-    if not (dev <= 2 * gaptol).all():
+    if not (dev <= (2 * gaptol if bar is None else bar)).all():
         raise AssertionError(f"{label}: dobj differs from {what} by "
                              f"{dev.max()}")
-    if abs(out.iters - ref.iters) > 3:
+    if abs(out.iters - ref.iters) > iters_tol:
         raise AssertionError(f"{label}: {out.iters} vs {ref.iters} iters "
                              f"({what})")
     return float(dev.max())
@@ -733,20 +981,111 @@ def fused_phase(cases, fset, f64_outs, refine_outs):
     return launches
 
 
-def timing_phase(cases, routes) -> None:
+def pallas_phase(cases, routes, f64_outs) -> dict:
+    """The two routes with use_pallas=True: "on_pallas" (phase32="on") and
+    "refine_pallas" (the fused refine tier).  Every request must launch the
+    solver's three float32 kernels and the probe kernel, the refine route
+    also bmm64 and the three fused kernels.  A direct request whose twin
+    (the same route with use_pallas=False: library factors) converges
+    every slot must be all OPTIMAL, pass check_solve, and match the twin:
+    equal statuses, iterations within 2, and bounds within 2 * gaptol of
+    it and of the float64 tier.  Where the twin itself FAILs slots (the
+    float32 "on" tier at cls_64, n = 129: JAX's own tier FAILs 1 of its 8
+    slots on the CPU), and on the probe and penalty requests, the FAILED
+    slots are counted and the OPTIMAL ones hold to both bounds.  Returns
+    the launches per route."""
+    launches = {}
+    failed = int(SolverResultStatus.FAILED)
+    for route in ("on_pallas", "refine_pallas"):
+        s = routes[route]
+        need = [*PALLAS, "cholesky_lanes"] + (
+            ["bmm64", *FUSED] if s.phase32 == "refine" else [])
+        launches[route], per_request, outs = drive(cases, s, need)
+        twin = dataclasses.replace(s, use_pallas=False)
+        for (label, dense, data, req, direct), out, f64, n in zip(
+                cases, outs, f64_outs, per_request):
+            ref = ipm_solve(data, *req, settings=twin)
+            held = direct and bool((ref.status == int(
+                SolverResultStatus.OPTIMAL)).all())
+            viol = None
+            if held:
+                viol = check_solve(label, dense, out, req, s.gaptol,
+                                   s.feastol, direct)
+                agree(label, out, ref, s.gaptol, "use_pallas=False",
+                      iters_tol=2)
+            diff64, dev64 = bounds_agree(label, out, f64, s.gaptol,
+                                         "the float64 tier")
+            difft, devt = bounds_agree(label, out, ref, s.gaptol,
+                                       "use_pallas=False")
+            log("pallas_solve", route=route, request=label,
+                held_to_twin=held, B=int(out.status.shape[0]),
+                iters=out.iters,
+                f64_iters=out.f64_iters,
+                failed=int((out.status == failed).sum()),
+                twin_iters=ref.iters, twin_f64_iters=ref.f64_iters,
+                twin_failed=int((ref.status == failed).sum()),
+                f64_tier_iters=f64.iters, launches=n,
+                status_diff_vs_f64_tier=diff64, status_diff_vs_twin=difft,
+                max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_twin=devt,
+                root_dobj=float(out.dobj[0]), root_dual_violation=viol)
+        log("pallas_path", route=route, launches=launches[route])
+    # "lite" once: logged and counted; it may FAIL slots, as in JAX
+    lite = dataclasses.replace(routes["on_pallas"], phase32="lite")
+    launches["lite_pallas"], per_request, outs = drive(cases[:1], lite, PALLAS)
+    diff64, dev64 = bounds_agree(cases[0][0], outs[0], f64_outs[0],
+                                 lite.gaptol, "the float64 tier")
+    log("lite_solve", request=cases[0][0], iters=outs[0].iters,
+        f64_iters=outs[0].f64_iters,
+        failed=int((outs[0].status == failed).sum()),
+        statuses=collections.Counter(outs[0].status.tolist()),
+        launches=per_request[0], status_diff_vs_f64_tier=diff64,
+        max_rel_dobj_vs_f64_tier=dev64)
+    return launches
+
+
+def tf32_phase(case, routes) -> None:
+    """The caller allows TF32: cls_32/direct through both pallas routes
+    must equal the same solve with TF32 off (statuses, iterations, dobj
+    bit for bit: every float32 iteration runs at full precision), and the
+    caller's flag must come back as it was set."""
+    label, _, data, req, _ = case
+    for route in ("refine_pallas", "on_pallas"):
+        s = routes[route]
+        off = ipm_solve(data, *req, settings=s)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            on = ipm_solve(data, *req, settings=s)
+            kept = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        same = (on.iters == off.iters
+                and bool((on.status == off.status).all())
+                and bool((on.dobj == off.dobj).all()))
+        log("tf32_check", route=route, request=label, flag_kept=kept,
+            iters=on.iters, same_as_tf32_off=same)
+        if not (kept and same):
+            raise AssertionError(f"{route} {label}: TF32 on changed the "
+                                 f"solve ({same}) or the flag ({kept})")
+
+
+def timing_phase(cases, routes, rounds) -> None:
     """Wall per request for each route, the routes in turns (the order
     rotates every round)."""
     names = list(routes)
     for label, _, data, req, _ in cases:
         walls = {k: [] for k in names}
-        for r in range(ROUTE_ROUNDS):
+        outs = {}
+        for r in range(rounds):
             order = names[r % len(names):] + names[:r % len(names)]
             if r % 2:
                 order = order[::-1]
             for k in order:
-                walls[k].append(timed(data, req, routes[k]))
-        log("timing", request=label, rounds=ROUTE_ROUNDS,
+                wall, outs[k] = timed(data, req, routes[k])
+                walls[k].append(wall)
+        log("timing", request=label, rounds=rounds,
             wall_s_median={k: float(np.median(v)) for k, v in walls.items()},
+            iters={k: o.iters for k, o in outs.items()},
+            f64_iters={k: o.f64_iters for k, o in outs.items()},
             first_faster_rounds={f"{a}<{b}": sum(
                 x < y for x, y in zip(walls[a], walls[b]))
                 for a, b in zip(names, names[1:] + names[:1])},
@@ -762,16 +1101,18 @@ def probe_timing_phase(cases, settings) -> None:
             order = ("kernel", "plain") if r % 2 == 0 else ("plain", "kernel")
             for route in order:
                 walls[route].append(timed(
-                    data, req, settings if route == "kernel" else plain))
+                    data, req, settings if route == "kernel" else plain)[0])
         log("f64_probe_timing", request=label,
             kernel_wall_s_median=float(np.median(walls["kernel"])),
             plain_probe_wall_s_median=float(np.median(walls["plain"])),
             wall_s=walls)
 
 
-def cpu_reference(device, routes) -> None:
+def cpu_reference(device, routes, bars) -> None:
     """A small instance on the card against the same solve on the CPU
-    (the path the tests hold against JAX), one per route."""
+    (the path the tests hold against JAX), one per route: equal statuses,
+    iterations within 3, dobj within ``bars[route]`` (2 * gaptol unless
+    named) * (1 + |dobj|)."""
     prob = cardinality_least_squares(8, 16, 3, seed=1)
     dense = densify(prob)
     lb, ub = node_boxes(prob, 8, 8, np.random.default_rng(1))
@@ -782,7 +1123,7 @@ def cpu_reference(device, routes) -> None:
         ref = ipm_solve(cpu_data, *req, settings=s)
         out = ipm_solve(dev_data, *req, settings=s)
         dev = agree(f"small CLS {route}", out, ref, s.gaptol,
-                    "the CPU solve")
+                    "the CPU solve", bar=bars.get(route))
         log("cpu_reference", instance="cls_8x16", B=8, route=route,
             iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
@@ -846,15 +1187,19 @@ def main() -> int:
     rset = dataclasses.replace(settings, phase32="refine",
                                fused_direction="off", step_rule="probe",
                                use_lanes_chol=True)
+    fset = dataclasses.replace(rset, fused_direction="on")
+    pallas = {"on_pallas": dataclasses.replace(rset, phase32="on",
+                                               use_pallas=True),
+              "refine_pallas": dataclasses.replace(fset, use_pallas=True)}
     log("settings", step_rule=settings.step_rule,
         use_lanes_chol=settings.use_lanes_chol, phase32=settings.phase32,
-        refine=dataclasses.asdict(rset))
+        use_pallas=settings.use_pallas, refine=dataclasses.asdict(rset),
+        pallas={k: dataclasses.asdict(v) for k, v in pallas.items()})
 
     build_phase()
     kern = {"cholesky_lanes": cholesky_phase(device), **df32_phase(device),
-            **fused_kernel_phase(device)}
+            **fused_kernel_phase(device), **pallas_kernel_phase(device)}
     cases = make_cases(device)
-    fset = dataclasses.replace(rset, fused_direction="on")
     routes = {"refine_fused": fset, "refine_kernels": rset,
               "refine_plain": dataclasses.replace(rset, use_df32="off"),
               "f64": settings}
@@ -862,12 +1207,27 @@ def main() -> int:
     paths["f64"], f64_outs = f64_phase(cases, settings)
     paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
     paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
-    timing_phase(cases, routes)
+    paths.update(pallas_phase(cases, pallas, f64_outs))
+    tf32_phase(cases[0], pallas)
+    timing_phase(cases, routes, ROUTE_ROUNDS)
+    # the float32 routes, and the "on" tier on library factors beside them
+    f32_routes = {"on_pallas": pallas["on_pallas"],
+                  "on": dataclasses.replace(pallas["on_pallas"],
+                                            use_pallas=False),
+                  "refine_pallas": pallas["refine_pallas"]}
+    direct = [c for c in cases if c[4]]
+    timing_phase(direct, {**f32_routes, "refine_fused": fset,
+                          "f64": settings}, PALLAS_ROUNDS)
     probe_timing_phase(cases, settings)
     cpu_reference(device, {"f64": settings, "refine_kernels": rset,
-                           "refine_fused": fset})
+                           "refine_fused": fset,
+                           "on_pallas": pallas["on_pallas"]},
+                  {"on_pallas": 5e-6})
     for label, _, data, req, _ in cases:
         for route, s in routes.items():
+            profile_one(label, data, req, s, route)
+    for label, _, data, req, _ in direct:
+        for route, s in f32_routes.items():
             profile_one(label, data, req, s, route)
 
     print(json.dumps({"kernels": [{

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled into
 ``build/scipsdp_tpu_torch/<hash>/lib<name>.so`` beside the package (the
 hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``; :func:`launch` calls its ``<name>_f64`` entry
-point on the current CUDA stream.  :func:`build` compiles several sources at once,
-one nvcc process each.  Sources come only from this package; nothing is
+loaded with ``ctypes``; :func:`launch` calls one of its entry points
+(``<name>_f64`` or ``<name>_f32``, as the caller names it) on the current
+CUDA stream.  The hash also covers the shared device code in
+``csrc/*.cuh``.  :func:`build` compiles several sources at once, one nvcc
+process each.  Sources come only from this package; nothing is
 fetched.  A failed build raises with nvcc's output.  The compiler's report
 (``-Xptxas -v``: registers, shared memory, spills) is kept in ``build.log``
 beside the library.
@@ -43,9 +45,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built (keyed by source and flags)."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built (keyed by source, headers and
+    flags)."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / key.hexdigest()[:16] / f"lib{name}.so"
 
 
@@ -85,20 +90,23 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, argtypes: tuple):
-    fn = getattr(load(name), f"{name}_f64")
+def _entry(name: str, entry: str, argtypes: tuple):
+    fn = getattr(load(name), entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
 
-def launch(name: str, argtypes: tuple, dev: torch.device, *args) -> None:
-    """Call ``<name>_f64(*args, stream)`` of ``csrc/<name>.cu`` (declared
-    with ``argtypes``, the stream last, returning a CUDA error code) on the
-    current stream of CUDA device ``dev``; raise on a non-zero error."""
+def launch(name: str, argtypes: tuple, dev: torch.device, *args,
+           entry: str | None = None) -> None:
+    """Call ``entry(*args, stream)`` of ``csrc/<name>.cu`` (``<name>_f64``
+    unless named; declared with ``argtypes``, the stream last, returning a
+    CUDA error code) on the current stream of CUDA device ``dev``, which is
+    made the current device for the call; raise on a non-zero error."""
+    entry = entry or f"{name}_f64"
     with torch.cuda.device(dev):
-        err = _entry(name, argtypes)(
+        err = _entry(name, entry, argtypes)(
             *args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
                            f"{err}")

@@ -82,14 +82,15 @@ __global__ void cholesky_lanes_kernel(const float* __restrict__ in,
 
 }  // namespace
 
-// Launch on ``stream`` for ``nmat`` matrices of size n on ``device``, which
-// the caller has made the current device; returns cudaGetLastError() after
-// the launch (0 = launched).
+// Launch on ``stream`` for ``nmat`` matrices of size n on the current
+// device; returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int cholesky_lanes_f32(const float* in, float* out, long long nmat,
-                                  int n, void* stream, int device) {
-  int max_smem = 0;
-  cudaError_t err = cudaDeviceGetAttribute(
-      &max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+                                  int n, void* stream) {
+  int device = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&max_smem,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   const size_t full = ((size_t)n * n + n) * sizeof(float);
   const int in_smem = full <= (size_t)max_smem;

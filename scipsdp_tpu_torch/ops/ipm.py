@@ -1,10 +1,15 @@
 """Batched primal-dual interior-point SDP solver (PyTorch).
 
 Counterpart of ``scipsdp_tpu/ops/ipm.py`` in its float64 configuration
-(``phase32="off"``) and its "refine" tier (``phase32="refine"``: float32
-factorizations, float64 assembly and refined Schur solves, with the exact
-contractions of ``ops/df32.py`` and the fused direction of
-``ops/fused.py``): one solve over a *batch* of SDPs that
+(``phase32="off"``), its plain float32 direction tiers (``phase32="on"``
+and ``"lite"``: every factorization, inverse and product of an iteration
+in float32 against the float64 residuals; "lite" polishes the Schur solve
+with float64 residual passes) and its "refine" tier (``phase32="refine"``:
+float32 factorizations, float64 assembly and refined Schur solves, with the
+exact contractions of ``ops/df32.py`` and the fused direction of
+``ops/fused.py``), with ``use_pallas`` routing the float32 factors,
+inverses and Schur Gram through the kernels of ``ops/kernels.py``: one
+solve over a *batch* of SDPs that
 share problem data (A, A_0, LP rows) and differ per instance in bounds,
 objective and cuts — the shape of branch-and-bound node relaxations.
 
@@ -31,9 +36,16 @@ batch runs until every instance is done.  Blocks are grouped into size
 buckets, each padded only to its bucket's maximum.
 
 The iteration loop is a Python loop: it reads ``all(done)`` on the host
-once per iteration (one device sync per iteration; in the refine tier the
-choice of tier for the next iteration comes back in the same read).
-Updates are guarded
+once per iteration (one device sync per iteration; in the float32 tiers
+the choice of tier for the next iteration comes back in the same read).
+Every float32 iteration runs its library matmuls in full float32,
+whatever the caller set: the solver saves the caller's TF32 / float32
+matmul precision settings (``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.get_float32_matmul_precision()``, through the per-backend
+``fp32_precision`` they are views of), sets full precision, and restores
+them after the iteration (the JAX package forces
+``jax.default_matmul_precision("float32")`` there; see
+``_full_f32_matmul``).  Updates are guarded
 with ``torch.where`` (never a multiply by a 0/1 mask: 0 * NaN would poison
 frozen instances), and every Cholesky returns NaN for a matrix that is not
 positive definite, which the solver reads as "not PSD".
@@ -41,6 +53,7 @@ positive definite, which the solver reads as "not PSD".
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Tuple
 
@@ -66,9 +79,18 @@ INF_THRESH = 1e19  # values beyond this are treated as infinite
 _PROBE_MULTS = (1.0, 2.0, 4.0, 8.0, 16.0)
 
 
-def _schur_product(Wall: torch.Tensor) -> torch.Tensor:
+def _pallas(A: torch.Tensor, settings: IPMSettings) -> bool:
+    """``use_pallas`` and a float32 operand: the hand-written kernel (its
+    plain version on a CPU tensor); a float64 operand goes to the library,
+    as the JAX package's dispatch sends it to XLA."""
+    return bool(settings.use_pallas) and A.dtype == torch.float32
+
+
+def _schur_product(Wall: torch.Tensor, settings: IPMSettings) -> torch.Tensor:
     """M = Wall @ Wall^T per batch element — the hot matmul of the IPM."""
-    return torch.einsum("xif,xjf->xij", Wall, Wall)
+    if _pallas(Wall, settings):
+        return kernels.schur_wwt(Wall)
+    return kernels.schur_wwt_plain(Wall)
 
 
 def _wfeat_flat(LxOp, A_t, Lsinv_t, B, mp):
@@ -84,10 +106,38 @@ def _bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("xkab,xkbc->xkac", a, b)
 
 
-def _tril_inv(L: torch.Tensor) -> torch.Tensor:
+def _chol(A: torch.Tensor, settings: IPMSettings) -> torch.Tensor:
+    """Batched lower Cholesky at the factor-quality sites (see
+    :func:`_chol_probe` for the probe sites); NaN for a matrix that is not
+    positive definite."""
+    if _pallas(A, settings):
+        return kernels.cholesky(A)
+    return cholesky(A)
+
+
+def _tril_inv(L: torch.Tensor, settings: IPMSettings) -> torch.Tensor:
     """Batched lower-triangular inverse (identity-RHS forward solves)."""
-    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
-    return torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+    if _pallas(L, settings):
+        return kernels.tril_inverse(L)
+    return kernels.tril_inverse_plain(L)
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Library float32 matmuls in full float32 inside, the caller's
+    settings restored after.  Torch keeps the matmul precision per backend
+    (``fp32_precision`` of ``torch.backends.cuda.matmul`` and
+    ``torch.backends.mkldnn.matmul``); ``allow_tf32`` and
+    ``get_float32_matmul_precision()`` are views of these that raise on a
+    state set through both APIs, so these two are saved, set to "ieee"
+    and restored."""
+    cuda, mkldnn = torch.backends.cuda.matmul, torch.backends.mkldnn.matmul
+    saved = cuda.fp32_precision, mkldnn.fp32_precision
+    cuda.fp32_precision = mkldnn.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        cuda.fp32_precision, mkldnn.fp32_precision = saved
 
 
 def _chol_probe(A: torch.Tensor, settings: IPMSettings) -> torch.Tensor:
@@ -322,8 +372,8 @@ class IPMState(NamedTuple):
     failed: torch.Tensor     # (B,)
     best_merit: torch.Tensor  # (B,) best progress merit seen
     stall: torch.Tensor       # (B,) iterations without progress
-    nan32: torch.Tensor       # (B,) refine-tier NaN: repair in float64 next
-    esc: torch.Tensor         # (B,) stalled in the refine tier: float64 on
+    nan32: torch.Tensor       # (B,) float32-tier NaN: repair in float64 next
+    esc: torch.Tensor         # (B,) stalled in a float32 tier: float64 on
 
 
 class SolveOutput(NamedTuple):
@@ -340,7 +390,7 @@ class SolveOutput(NamedTuple):
     xlb: torch.Tensor        # (B, mp) lower-bound multipliers
     xub: torch.Tensor        # (B, mp) upper-bound multipliers
     f64_iters: int           # iterations that ran the float64 tier (all of
-                             # them with phase32="off"; in the refine tier
+                             # them with phase32="off"; in a float32 tier
                              # the nan32 repairs, escalations and handoff)
 
 
@@ -361,16 +411,10 @@ def _check_supported(settings: IPMSettings, warm) -> None:
     """Raise for the parts of the JAX solver this port does not carry yet."""
     if settings.dtype != "float64":
         raise NotImplementedError(
-            "ipm_solve: only dtype='float64'; the float32 solve is not "
-            "ported yet")
-    if settings.phase32 in ("on", "lite"):
-        raise NotImplementedError(
-            f"ipm_solve: phase32={settings.phase32!r} (the plain float32 "
-            "direction tiers) is not ported yet; 'refine' and 'off' are")
-    if settings.use_pallas:
-        raise NotImplementedError(
-            "ipm_solve: use_pallas (schur_wwt, cholesky, tril_inverse "
-            "kernels) waits for the port of those kernels")
+            "ipm_solve: only dtype='float64'.  The JAX reference's "
+            "dtype='float32' solve raises NameError (its float32 pass reads "
+            "A32, which it binds only for phase32 tiers, and those need "
+            "dtype='float64'), so there is nothing to hold a port against")
     if settings.preopt_gap > 0.0:
         raise NotImplementedError(
             "ipm_solve: preopt_gap > 0 (pre-optimal snapshots) waits for "
@@ -401,14 +445,21 @@ def ipm_solve(
     """Solve a batch of SDPs on ``data``'s device.  Array arguments may be
     tensors or numpy arrays; they are moved to that device in float64.
 
-    ``settings.phase32``: "off" runs every iteration in float64; "refine"
-    runs the JAX package's refine tier from the first iteration — float32
-    factors, float64 assembly, ``schur_refine`` refinement passes — and an
-    iteration in float64 below ``refine_switch``, after a float32 NaN
+    ``settings.phase32``: "off" runs every iteration in float64; "on"
+    runs an iteration wholly in float32 while every active relative gap is
+    above ``phase32_switch``, "lite" the same above ``refine_switch`` with
+    the Schur solve polished by ``schur_refine`` float64 residual passes;
+    "refine" runs the JAX package's refine tier from the first iteration —
+    float32 factors, float64 assembly, ``schur_refine`` refinement passes —
+    and an iteration in float64 below ``refine_switch``.  In every float32
+    tier an iteration runs in float64 after a float32 NaN
     (``nan32_policy="repair"``) or for an instance that stalled in the
-    tier.  Its exact contractions go through the ``ops/df32.py`` kernels
-    unless ``use_df32="off"`` (their plain versions; either way on CPU
-    tensors).  With ``use_df32`` not "off", ``fused_direction`` "auto" or
+    tier.  ``use_pallas`` sends the float32 Cholesky factors, triangular
+    inverses and Schur Gram to the kernels of ``ops/kernels.py`` (their
+    plain versions on CPU tensors); float64 operands stay on the library.
+    The refine tier's exact contractions go through the ``ops/df32.py``
+    kernels unless ``use_df32="off"`` (their plain versions; either way on
+    CPU tensors).  With ``use_df32`` not "off", ``fused_direction`` "auto" or
     "on" runs the tier's Newton direction through the three fused kernels
     of ``ops/fused.py`` (plain versions on CPU tensors), "off" through the
     separate contractions; outside the refine tier it is inert, as in JAX.
@@ -456,6 +507,7 @@ def ipm_solve(
                  for t in bidx)
     eye_act = tuple(eyen[t][None, None] * pad_diag[t][..., None]
                     * pad_diag[t][..., None, :] for t in bidx)
+    eye_act32 = tuple(e.to(torch.float32) for e in eye_act)
     eye_mp = torch.eye(mp, dtype=dtype, device=dev)
 
     nu = (pre.rowmask.sum(dim=1) + pre.lbmask.sum(dim=1)
@@ -517,14 +569,18 @@ def ipm_solve(
     datascale = 1.0 + torch.maximum(cmax, data.h.abs().max())
     free_outer = (~pre.fix)[:, :, None] & (~pre.fix)[:, None, :]
 
-    # refine tier (phase32="refine"): float32 shadows of the static data and
-    # the loop-invariant operands of its exact contractions, built once per
-    # solve — A flattened per bucket to (mp, K*n*n) in feature order
-    # (k, a, b), and the row system and its transpose, contiguous
+    # float32 tiers (JAX ipm.py:641-644): float32 shadows of the static
+    # data, built once per solve; the refine tier adds the loop-invariant
+    # operands of its exact contractions — A flattened per bucket to
+    # (mp, K*n*n) in feature order (k, a, b), and the row system and its
+    # transpose, contiguous
     use_refine = settings.phase32 == "refine"
-    if use_refine:
+    use_lite = settings.phase32 == "lite"
+    use_phase32 = settings.phase32 == "on" or use_refine or use_lite
+    if use_phase32:
         A32 = tuple(data.A[t].to(torch.float32) for t in bidx)
         G32 = Gall.to(torch.float32)
+    if use_refine:
         A_flat = tuple(data.A[t].transpose(0, 1).reshape(mp, -1) for t in bidx)
         Gall_c = Gall.contiguous()
         GallT = Gall.transpose(1, 2).contiguous()
@@ -671,18 +727,18 @@ def ipm_solve(
         return EvalOut(Rp=Rp, rpl=rpl, rplb=rplb, rpub=rpub, rd=rd, gap=gap,
                        relgap=relgap, pinf=pinf, dinf=dinf, conv=conv)
 
-    def psd_steps(Lxinv, Lsinv, dX, dS, step_fn, cast32):
+    def psd_steps(Lxinv, Lsinv, dX, dS, step_fn, cast32, wdt):
         """min over blocks of the X- and S-side PSD max-steps, with the
         X/S congruence transforms stacked (``cast32``: in the refine tier's
-        float32; the steps come back in float64)."""
+        float32; the steps come back in ``wdt``)."""
         apv, adv = [], []
         for t, Yb in enumerate(congruences(Lxinv, Lsinv, dX, dS, cast32)):
             stp = step_fn(Yb)
             Kt = dX[t].shape[1]
             apv.append(torch.amin(stp[:, :Kt], dim=1))
             adv.append(torch.amin(stp[:, Kt:], dim=1))
-        return (torch.amin(torch.stack(apv), dim=0).to(dtype),
-                torch.amin(torch.stack(adv), dim=0).to(dtype))
+        return (torch.amin(torch.stack(apv), dim=0).to(wdt),
+                torch.amin(torch.stack(adv), dim=0).to(wdt))
 
     def steplens(st, d, psd):
         """Primal and dual step lengths of direction ``d``: the PSD pair
@@ -726,9 +782,13 @@ def ipm_solve(
         complementarity right-hand side and returns (dy, dX, dS, dxl, dsl,
         dxlb, dslb, dxub, dsub); ``mm`` is the batched float64 product of
         the complementarity terms.  ``refine``: the step rules run on the
-        tier's float32 factors, and the Gondzio correctors run."""
+        tier's float32 factors, and the Gondzio correctors run.  The pass
+        computes in the type of ``st`` and ``ev`` (float32 in the plain
+        float32 tiers)."""
         X, S = st.X, st.S
-        mu = ev.gap / nu
+        wdt = st.xl.dtype
+        eyea = eye_act32 if wdt == torch.float32 else eye_act
+        mu = ev.gap / nu.to(wdt)
         if settings.step_rule == "power":
             psd_ymat_step = max_step_from_ymat
         elif settings.step_rule in ("gershgorin", "probe"):
@@ -741,10 +801,10 @@ def ipm_solve(
             fraction-to-boundary factor tau."""
             if settings.step_rule == "probe":
                 app, adp = probe_steps(Lxinv, Lsinv, d[1], d[2], cast32=refine)
-                psd = (app.to(dtype), adp.to(dtype))
+                psd = (app.to(wdt), adp.to(wdt))
             else:
                 psd = psd_steps(Lxinv, Lsinv, d[1], d[2], psd_ymat_step,
-                                refine)
+                                refine, wdt)
             ap, ad = steplens(st, d, psd)
             return (torch.clamp_max(settings.tau * ap, 1.0),
                     torch.clamp_max(settings.tau * ad, 1.0))
@@ -760,7 +820,7 @@ def ipm_solve(
         # the affine step lengths only feed Mehrotra's sigma estimate, so
         # the cheap conservative Gershgorin bound serves regardless of rule
         ap_a, ad_a = steplens(st, da, psd_steps(
-            Lxinv, Lsinv, dX_a, dS_a, gersh_step_from_ymat, refine))
+            Lxinv, Lsinv, dX_a, dS_a, gersh_step_from_ymat, refine, wdt))
         ap_a = torch.clamp_max(ap_a, 1.0)
         ad_a = torch.clamp_max(ad_a, 1.0)
 
@@ -791,7 +851,7 @@ def ipm_solve(
         smu = (sigma * mu)[:, None, None, None]
         Rc_c = tuple(torch.where(
             pad_outer[t],
-            smu * eye_act[t] - XS[t] - mm(dX_a[t], dS_a[t]),
+            smu * eyea[t] - XS[t] - mm(dX_a[t], dS_a[t]),
             0.0) for t in bidx)
         smu_v = (sigma * mu)[:, None]
         rcl_c = torch.where(pre.rowmask,
@@ -824,7 +884,7 @@ def ipm_solve(
             Rc_g = tuple(torch.where(
                 pad_outer[t],
                 cor(mm(X[t] + apt * dX[t], S[t] + adt * dS[t]),
-                    lo4 * eye_act[t], hi4 * eye_act[t]),
+                    lo4 * eyea[t], hi4 * eyea[t]),
                 0.0) for t in bidx)
             lo, hi = (0.1 * tgt)[:, None], (10.0 * tgt)[:, None]
             rcl_g = torch.where(pre.rowmask, cor(
@@ -877,20 +937,38 @@ def ipm_solve(
 
         return (*d, ap, ad)
 
-    def iter_products(st: IPMState, ev: EvalOut):
-        """One Mehrotra predictor-corrector direction + step-length pass in
-        float64.  Per bucket, ONE stacked Cholesky + ONE stacked triangular
-        inverse cover both X and S; the Schur factor is inverted explicitly
-        so both direction solves and all PSD max-step rules become batched
-        matmuls (ops/eigen.ymat)."""
+    def iter_products(st: IPMState, ev: EvalOut, dtp):
+        """One Mehrotra predictor-corrector direction + step-length pass
+        with every factorization, solve and product in ``dtp`` (JAX
+        ``iter_products``): float64, or float32 in the plain float32 tiers,
+        where the state and residuals are cast down first and the
+        direction and steps cast back up at the end.  Per bucket, ONE
+        stacked Cholesky + ONE stacked triangular inverse cover both X and
+        S; the Schur factor is inverted explicitly so both direction solves
+        and all PSD max-step rules become batched matmuls
+        (ops/eigen.ymat)."""
+        f32 = dtp == torch.float32
+        lite = f32 and use_lite
+        Ad, Gd = (A32, G32) if f32 else (data.A, Gall)
+
+        def cast(a):
+            return a.to(dtp)
+
+        st = st._replace(X=tuple(map(cast, st.X)), S=tuple(map(cast, st.S)),
+                         xl=cast(st.xl), sl=cast(st.sl), xlb=cast(st.xlb),
+                         slb=cast(st.slb), xub=cast(st.xub), sub=cast(st.sub))
+        ev = ev._replace(Rp=tuple(map(cast, ev.Rp)), rpl=cast(ev.rpl),
+                         rplb=cast(ev.rplb), rpub=cast(ev.rpub),
+                         rd=cast(ev.rd), gap=cast(ev.gap))
         X, S = st.X, st.S
         xl, sl, xlb, slb, xub, sub = st.xl, st.sl, st.xlb, st.slb, st.xub, st.sub
         Rp = ev.Rp
+        eye = eye_mp.to(dtp)
 
         def chol_inv(t):
             Kt = X[t].shape[1]
-            L = cholesky(torch.cat([X[t], S[t]], dim=1))   # (B, 2K, n, n)
-            Linv = _tril_inv(L)
+            L = _chol(torch.cat([X[t], S[t]], dim=1), settings)  # (B, 2K, n, n)
+            Linv = _tril_inv(L, settings)
             return L[:, :Kt], L[:, Kt:], Linv[:, :Kt], Linv[:, Kt:]
 
         LXS = [chol_inv(t) for t in bidx]
@@ -905,43 +983,80 @@ def ipm_solve(
         # and cut rows contribute G^T diag(xl/sl) G = Wg^T Wg — everything
         # stacks into one feature axis and M is ONE batched matmul.
         wl = torch.where(pre.rowmask, xl / sl, 0.0)
-        Wg = torch.sqrt(wl)[:, :, None] * Gall                 # (B, P, mp)
-        Wall = torch.cat([_wfeat_flat(Lx[t], data.A[t], Lsinv[t], B, mp)
+        Wg = torch.sqrt(wl)[:, :, None] * Gd                   # (B, P, mp)
+        Wall = torch.cat([_wfeat_flat(Lx[t], Ad[t], Lsinv[t], B, mp)
                           for t in bidx] + [Wg.transpose(1, 2)], dim=2)
-        M = _schur_product(Wall)
+        M = _schur_product(Wall, settings)
         wlb = torch.where(pre.lbmask, xlb / slb, 0.0)
         wub = torch.where(pre.ubmask, xub / sub, 0.0)
-        M = M + (wlb + wub)[:, :, None] * eye_mp[None]
+        M = M + (wlb + wub)[:, :, None] * eye[None]
         # fixed variables: identity row/col, dy = 0
         M = torch.where(free_outer, M, 0.0)
-        M = M + pre.fix.to(dtype)[:, :, None] * eye_mp[None]
-        reg = settings.chol_reg * (1.0 + torch.amax(M.abs(), dim=(1, 2)))
-        M = M + reg[:, None, None] * eye_mp[None]
-        Lminv = _tril_inv(cholesky(M))
-        Minv = torch.einsum("xba,xbc->xac", Lminv, Lminv)  # Lm^-T Lm^-1
+        M = M + pre.fix.to(dtp)[:, :, None] * eye[None]
+        chol_reg = max(settings.chol_reg, 1e-9) if f32 else settings.chol_reg
+        reg = chol_reg * (1.0 + torch.amax(M.abs(), dim=(1, 2)))
+        M = M + reg[:, None, None] * eye[None]
+        if f32:
+            # Jacobi equilibration: near convergence the Schur diagonal
+            # spans many orders of magnitude; cond(D M D) << cond(M) lets
+            # the float32 factorization carry the solve
+            dsc = 1.0 / torch.sqrt(torch.clamp_min(
+                torch.diagonal(M, dim1=1, dim2=2), 1e-30))
+            Lminv = _tril_inv(_chol(M * dsc[:, :, None] * dsc[:, None, :],
+                                    settings), settings)
+            Minv = (torch.einsum("xba,xbc->xac", Lminv, Lminv)
+                    * dsc[:, :, None] * dsc[:, None, :])
+        else:
+            Lminv = _tril_inv(_chol(M, settings), settings)
+            Minv = torch.einsum("xba,xbc->xac", Lminv, Lminv)  # Lm^-T Lm^-1
+        if lite:
+            # "lite": float32 assembly throughout, the Schur back-solve
+            # polished by float64 residual passes against the exact Gram
+            # of the float32 features (plain float64 matvecs, no kernel)
+            Wall64 = Wall.to(dtype)
+            diag64 = (wlb + wub).to(dtype)
+            reg64 = reg.to(dtype)
+
+        def solve_dy(rhs):
+            dy = torch.einsum("xij,xj->xi", Minv, rhs)
+            if not lite:
+                return dy
+            rhs64 = torch.where(pre.fix, 0.0, rhs.to(dtype))
+            dy = dy.to(dtype)
+            for _ in range(max(int(settings.schur_refine), 0)):
+                vf = torch.where(pre.fix, 0.0, dy)
+                wt = torch.einsum("xif,xi->xf", Wall64, vf)
+                u = (torch.einsum("xif,xf->xi", Wall64, wt)
+                     + diag64 * vf + reg64[:, None] * vf)
+                r = rhs64 - torch.where(pre.fix, 0.0, u)
+                dy = dy + torch.einsum("xij,xj->xi", Minv,
+                                       r.to(dtp)).to(dtype)
+            return torch.where(pre.fix, 0.0, dy).to(dtp)
 
         def direction(Rc, rcl, rclb, rcub):
             PsiSinv = [_bmm(Rc[t] - _bmm(X[t], Rp[t]), Sinv[t]) for t in bidx]
             rhs = lp_rhs(
                 st, ev,
-                bsum([torch.einsum("kjab,xkba->xj", data.A[t], PsiSinv[t])
+                bsum([torch.einsum("kjab,xkba->xj", Ad[t], PsiSinv[t])
                       for t in bidx]),
-                lambda w: torch.einsum("xpm,xp->xm", Gall, w),
+                lambda w: torch.einsum("xpm,xp->xm", Gd, w),
                 rcl, rclb, rcub)
             rhs = torch.where(pre.fix, 0.0, rhs)
-            dy = torch.einsum("xij,xj->xi", Minv, rhs)
+            dy = solve_dy(rhs)
             dS = tuple(torch.where(
                 pad_outer[t],
-                torch.einsum("kjab,xj->xkab", data.A[t], dy) + Rp[t],
+                torch.einsum("kjab,xj->xkab", Ad[t], dy) + Rp[t],
                 0.0) for t in bidx)
             dX = tuple(torch.where(pad_outer[t], sym(_bmm(
                 Rc[t] - _bmm(X[t], dS[t]), Sinv[t])), 0.0) for t in bidx)
             dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
-                st, ev, dy, torch.einsum("xpm,xm->xp", Gall, dy),
+                st, ev, dy, torch.einsum("xpm,xm->xp", Gd, dy),
                 rcl, rclb, rcub)
             return dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub
 
-        return mehrotra(st, ev, Lxinv, Lsinv, direction, _bmm, refine=False)
+        out = mehrotra(st, ev, Lxinv, Lsinv, direction, _bmm, refine=False)
+        return tuple(tuple(v.to(dtype) for v in x) if isinstance(x, tuple)
+                     else x.to(dtype) for x in out)
 
     def iter_products_refine(st: IPMState, ev: EvalOut):
         """float32-factorization / float64-assembly Mehrotra pass (the JAX
@@ -975,7 +1090,8 @@ def ipm_solve(
                 torch.diagonal(both, dim1=-2, dim2=-1), 1e-30))
             dinv = 1.0 / dg
             scaled = both * dinv[..., :, None] * dinv[..., None, :]
-            Linv = _tril_inv(cholesky(scaled)) * dinv[..., None, :]
+            Linv = (_tril_inv(_chol(scaled, settings), settings)
+                    * dinv[..., None, :])
             return Linv[:, :Kt], Linv[:, Kt:]
 
         LXS = [chol_inv(t) for t in bidx]
@@ -1011,7 +1127,7 @@ def ipm_solve(
         Wg = torch.sqrt(wl64).to(f32)[:, :, None] * G32
         Wall = torch.cat([wfeat(t) for t in bidx] + [Wg.transpose(1, 2)],
                          dim=2)
-        M = _schur_product(Wall)
+        M = _schur_product(Wall, settings)
         eye32 = eye_mp.to(f32)
         M = M + (wlb64 + wub64).to(f32)[:, :, None] * eye32[None]
         M = torch.where(free_outer, M, 0.0)
@@ -1028,7 +1144,7 @@ def ipm_solve(
         dsc = 1.0 / torch.sqrt(torch.clamp_min(
             torch.diagonal(M, dim1=1, dim2=2), 1e-30))
         Ms = M * dsc[:, :, None] * dsc[:, None, :]
-        Lminv = _tril_inv(cholesky(Ms))
+        Lminv = _tril_inv(_chol(Ms, settings), settings)
         Minv = torch.einsum("xba,xbc->xac", Lminv, Lminv)
         dsc64 = dsc.to(dtype)
         diag64 = wlb64 + wub64
@@ -1112,16 +1228,21 @@ def ipm_solve(
         return mehrotra(st, ev, Lxinv, Lsinv, direction, mm_f64, refine=True)
 
     def body(st: IPMState, ev: EvalOut, use32: bool):
-        dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, ap, ad = (
-            iter_products_refine(st, ev) if use32 else iter_products(st, ev))
+        if not use32:
+            prods = iter_products(st, ev, dtype)
+        else:
+            with _full_f32_matmul():
+                prods = (iter_products_refine(st, ev) if use_refine
+                         else iter_products(st, ev, torch.float32))
+        dy, dX, dS, dxl, dsl, dxlb, dslb, dxub, dsub, ap, ad = prods
 
         # freeze finished instances; detect numerical failure (NaN)
         bad = torch.isnan(dy).any(dim=1) | torch.isnan(ap) | torch.isnan(ad)
         for t in bidx:
             bad = bad | torch.isnan(dX[t]).any(dim=-1).any(dim=-1).any(dim=-1)
         nan32 = st.nan32
-        if use_refine and settings.nan32_policy != "fail":
-            # a NaN from the refine tier is a PRECISION failure, not a solve
+        if use_phase32 and settings.nan32_policy != "fail":
+            # a NaN from a float32 tier is a PRECISION failure, not a solve
             # failure: skip the update and run the next iteration in
             # float64.  A one-iteration repair: nan32 clears after every
             # float64 iteration, so the batch drops back to the tier.
@@ -1174,9 +1295,9 @@ def ipm_solve(
         stall_cnt = torch.where(improved | new.done, 0, new.stall + 1)
         stalled = stall_cnt >= settings.stall_window
         esc = new.esc
-        if use_refine:
+        if use_phase32:
             # fast->stable escalation (sdpisolver_sdpa.cpp:1416-1441 role):
-            # an instance stalling in the refine tier moves to float64
+            # an instance stalling in a float32 tier moves to float64
             # (sticky via esc) with a fresh stall budget; only a SECOND
             # stall, in float64, fails it
             esc_now = stalled & ~new.done & ~conv & ~new.esc
@@ -1195,21 +1316,25 @@ def ipm_solve(
         )
         return st_out, ev_n
 
+    # the float32 tiers' hand-over to float64 (JAX ipm.py:1704-1724)
+    switch = (settings.phase32_switch if settings.phase32 == "on"
+              else settings.refine_switch)
+
     def tier32(st: IPMState, ev: EvalOut) -> torch.Tensor:
-        """The refine tier's choice for the next iteration, on the device:
-        float32 while every active instance's relative gap is above
-        refine_switch and none of them needs the nan32 repair or has
+        """A float32 tier's choice for the next iteration, on the device:
+        float32 while every active instance's relative gap is above the
+        switch and none of them needs the nan32 repair or has
         escalated."""
         active = ~st.done
-        return (((ev.relgap > settings.refine_switch) | st.done).all()
+        return (((ev.relgap > switch) | st.done).all()
                 & ~(st.nan32 & active).any() & ~(st.esc & active).any())
 
     st, ev = st0, evaluate(st0)
     f64_iters = 0
     while st.it < settings.max_iters:
-        # one host read per iteration: the batch's done mask, and in the
-        # refine tier the choice of tier in the same transfer
-        if use_refine:
+        # one host read per iteration: the batch's done mask, and in a
+        # float32 tier the choice of tier in the same transfer
+        if use_phase32:
             all_done, use32 = torch.stack(
                 [st.done.all(), tier32(st, ev)]).tolist()
         else:

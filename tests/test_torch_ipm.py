@@ -165,14 +165,19 @@ def test_lanes_chol_flag_on_cpu_uses_plain_version():
     ({}, {"ip_point": "ip"}),
 ])
 def test_unported_paths_raise(kw, extra):
-    """Every path the port does not carry yet raises.  phase32="refine" is
-    ported, and use_df32="on" and fused_direction="on" are inert outside
-    it, as in JAX: those three cases solve."""
+    """Every path the port does not carry yet raises.  phase32 "refine",
+    "on" and "lite" and use_pallas are ported, and use_df32="on" and
+    fused_direction="on" are inert outside the refine tier, as in JAX:
+    those six cases solve.  dtype="float32" still raises: the JAX
+    reference's float32 solve itself raises NameError (its float32 pass
+    reads A32, bound only for the phase32 tiers, which need float64), so
+    there is no reference to hold a port against."""
     _, _, tdata = problem("cls")
     b, lb, ub = node_boxes(problem("cls")[0], 2)
     settings = tcfg.IPMSettings(**(pinned("probe") | kw))
-    if kw in ({"phase32": "refine"}, {"use_df32": "on"},
-              {"fused_direction": "on"}):
+    if kw in ({"phase32": "refine"}, {"phase32": "on"}, {"phase32": "lite"},
+              {"use_df32": "on"}, {"fused_direction": "on"},
+              {"use_pallas": True}):
         out = tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
         assert out.status.tolist() == [1, 1]
         assert out.f64_iters <= out.iters

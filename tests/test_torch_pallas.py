@@ -1,0 +1,195 @@
+"""The float32 kernels of scipsdp_tpu_torch.ops.kernels on the CPU: each
+plain version against the JAX package's Pallas kernel run in interpret
+mode (as tests/test_pallas.py and tests/test_lanes_chol.py run them), at
+those tests' shapes and bars, and the wrappers' CPU dispatch and checks.
+
+The CUDA kernels themselves run only on the card: ``python3 chip_smoke.py``
+holds each against the same plain version there.
+"""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from scipsdp_tpu.ops import pallas_kernels as jpk
+from scipsdp_tpu_torch import _build
+from scipsdp_tpu_torch.ops import kernels
+
+# the four kernels of this module: (wrapper, plain version)
+KERNELS = {
+    "cholesky": (kernels.cholesky, kernels.cholesky_plain),
+    "tril_inverse": (kernels.tril_inverse, kernels.tril_inverse_plain),
+    "schur_wwt": (kernels.schur_wwt, kernels.schur_wwt_plain),
+    "chol_inverse_lanes": (kernels.chol_inverse_lanes,
+                           kernels.chol_inverse_lanes_plain),
+}
+
+
+def _spd(rng, N, n):
+    """tests/test_pallas.py's positive definite float32 stack."""
+    A = rng.standard_normal((N, n, n)).astype(np.float32)
+    return A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n, dtype=np.float32)
+
+
+def _spd_lanes(rng, N, n):
+    """tests/test_lanes_chol.py's positive definite stack."""
+    a = rng.randn(N, n, n)
+    return np.einsum("bij,bkj->bik", a, a) + n * np.eye(n)
+
+
+# tests/test_pallas.py's shapes, and its F-chunk case (1, 16, 1024)
+@pytest.mark.parametrize("B,mp,F,seed", [(2, 35, 577, 0), (1, 8, 64, 0),
+                                         (3, 130, 1024, 0), (1, 16, 1024, 1)])
+def test_schur_wwt_matches_pallas_interpret(B, mp, F, seed):
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((B, mp, F)).astype(np.float32)
+    ref = np.asarray(jpk.schur_wwt(jnp.asarray(W), interpret=True))
+    M = kernels.schur_wwt_plain(torch.as_tensor(W))
+    assert M.dtype == torch.float32 and M.shape == (B, mp, mp)
+    exact = np.einsum("xif,xjf->xij", W.astype(np.float64), W.astype(np.float64))
+    scale = max(1.0, np.abs(exact).max())
+    assert np.abs(M.numpy() - ref).max() / scale < 1e-5
+    assert np.abs(M.numpy() - exact).max() / scale < 1e-5
+
+
+@pytest.mark.parametrize("N,n", [(4, 20), (2, 48), (1, 128)])
+def test_cholesky_matches_pallas_interpret(N, n):
+    A = _spd(np.random.default_rng(3), N, n)
+    ref = np.asarray(jpk.cholesky(jnp.asarray(A), interpret=True))
+    lapack = np.linalg.cholesky(A.astype(np.float64))
+    L = kernels.cholesky_plain(torch.as_tensor(A)).numpy()
+    assert L.dtype == np.float32
+    for other in (ref, lapack):
+        assert np.abs(L - other).max() / np.abs(lapack).max() < 1e-4
+
+
+def test_cholesky_nan_on_the_non_pd_matrix_only():
+    A = _spd(np.random.default_rng(4), 3, 16)
+    A[1] -= 100.0 * np.eye(16, dtype=np.float32)
+    ref = np.asarray(jpk.cholesky(jnp.asarray(A), interpret=True))
+    L = kernels.cholesky_plain(torch.as_tensor(A)).numpy()
+    for out in (L, ref):
+        assert np.isnan(out[1]).any()
+        assert np.isfinite(out[0]).all() and np.isfinite(out[2]).all()
+    # NaN on and below the diagonal, zeros above (the kernels' pattern)
+    assert np.isnan(np.tril(L[1])[np.tril_indices(16)]).all()
+    assert (np.triu(L[1], 1) == 0).all()
+
+
+@pytest.mark.parametrize("N,n", [(4, 20), (1, 96)])
+def test_tril_inverse_matches_pallas_interpret(N, n):
+    L = np.linalg.cholesky(_spd(np.random.default_rng(5), N, n)
+                           .astype(np.float64)).astype(np.float32)
+    X = kernels.tril_inverse_plain(torch.as_tensor(L)).numpy()
+    ref = np.asarray(jpk.tril_inverse(jnp.asarray(L), interpret=True))
+    L64 = L.astype(np.float64)
+    for out in (X, ref):
+        assert np.abs(out @ L64 - np.eye(n)).max() < 1e-4
+    assert np.abs(X - ref).max() / np.abs(ref).max() < 1e-4
+
+
+def test_chol_inverse_lanes_matches_pallas_interpret():
+    A = _spd_lanes(np.random.RandomState(2), 20, 43).astype(np.float32)
+    ref = np.linalg.inv(np.linalg.cholesky(A.astype(np.float64)))
+    X = kernels.chol_inverse_lanes_plain(torch.as_tensor(A)).numpy()
+    jx = np.asarray(jpk.chol_inverse_lanes(jnp.asarray(A), interpret=True))
+    np.testing.assert_allclose(X, ref, rtol=3e-3, atol=3e-3)
+    np.testing.assert_allclose(X, jx, rtol=3e-3, atol=3e-3)
+
+
+def test_chol_inverse_lanes_leading_shape():
+    A = _spd_lanes(np.random.RandomState(3), 12, 9).reshape(3, 4, 9, 9)
+    A = torch.as_tensor(A, dtype=torch.float32)
+    X = kernels.chol_inverse_lanes_plain(A)
+    assert X.shape == (3, 4, 9, 9)
+    flat = kernels.chol_inverse_lanes_plain(A.reshape(12, 9, 9))
+    np.testing.assert_allclose(X.reshape(12, 9, 9).numpy(), flat.numpy(),
+                               rtol=1e-5)
+    jx = np.asarray(jpk.chol_inverse_lanes(jnp.asarray(A.numpy()),
+                                           interpret=True))
+    np.testing.assert_allclose(X.numpy(), jx, rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("name", ["cholesky", "tril_inverse",
+                                  "chol_inverse_lanes"])
+def test_lower_triangular_outputs(name):
+    """Exact zeros above the diagonal, also for a lower-triangular input
+    whose upper triangle holds garbage (only the lower one is read)."""
+    A = _spd(np.random.default_rng(6), 5, 11)
+    if name == "tril_inverse":
+        A = np.linalg.cholesky(A.astype(np.float64)).astype(np.float32)
+    wrapper, plain = KERNELS[name]
+    out = wrapper(torch.as_tensor(A)).numpy()
+    assert (np.triu(out, 1) == 0).all()
+    junk = A + np.triu(np.full_like(A, 7.0), 1)
+    if name == "tril_inverse":   # eigen.cholesky symmetrizes its input
+        np.testing.assert_array_equal(plain(torch.as_tensor(junk)).numpy(),
+                                      out)
+
+
+def test_cpu_wrappers_are_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch; any leading batch shape is kept."""
+    rng = np.random.default_rng(7)
+    A = torch.as_tensor(_spd(rng, 6, 9).reshape(2, 3, 9, 9))
+    L = kernels.cholesky_plain(A)
+    W = torch.as_tensor(rng.standard_normal((2, 3, 5, 40)), dtype=torch.float32)
+    args = {"cholesky": A, "tril_inverse": L, "schur_wwt": W,
+            "chol_inverse_lanes": A}
+    for name, (wrapper, plain) in KERNELS.items():
+        before = wrapper.launches
+        out = wrapper(args[name])
+        assert wrapper.launches == before, name
+        assert out.shape[:2] == (2, 3), name
+        torch.testing.assert_close(out, plain(args[name]), rtol=0, atol=0)
+
+
+def test_wrappers_take_float32_only_and_raise_off_cpu_and_cuda():
+    """float64 raises TypeError on any device (the solver's dispatch sends
+    float64 operands to the library); a device that is neither CPU nor
+    CUDA raises instead of falling back; a non-square stack raises."""
+    for name, (wrapper, _) in KERNELS.items():
+        with pytest.raises(TypeError, match="float32 only"):
+            wrapper(torch.zeros((2, 4, 4), dtype=torch.float64))
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(torch.empty((2, 4, 4), dtype=torch.float32, device="meta"))
+        if name != "schur_wwt":
+            with pytest.raises(ValueError, match="expected"):
+                wrapper(torch.zeros((2, 4, 5), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("B,mp,F", [(32, 66, 4290), (8, 130, 16770),
+                                    (32, 46, 101), (3, 130, 1024),
+                                    (1, 16, 1024), (2, 35, 577), (1, 8, 1)])
+def test_gram_chunks_cover_f(B, mp, F):
+    """The Schur Gram's F split: chunks of a multiple of 32 columns, every
+    chunk non-empty, together exactly F; at the main path's shapes enough
+    (tile, batch, chunk) blocks for the card."""
+    nchunks, chunk_len = kernels.gram_chunks(B, mp, F)
+    assert chunk_len % 32 == 0 and nchunks >= 1
+    assert (nchunks - 1) * chunk_len < F <= nchunks * chunk_len
+    tiles = -(-mp // 32)
+    if F >= 4096:
+        assert B * tiles * (tiles + 1) // 2 * nchunks >= 500
+
+
+def test_kernel_sources_and_build_paths():
+    """Each kernel has its own source with a plain C float32 entry point
+    and no library call; the shared device code is a header whose bytes
+    enter every library's hash."""
+    for name in KERNELS:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert re.search(rf'extern "C" int {name}_f32\(', src), name
+        assert "Replaces: scipsdp_tpu/ops/pallas_kernels.py::" in src
+        assert not re.search(r"cublas|cusolver|\btorch\b", src, re.I), name
+        p = _build.library_path(name)
+        assert p.name == f"lib{name}.so" and p.parent.parent == _build.BUILD_ROOT
+    assert len({_build.library_path(k).parent for k in KERNELS}) == 4
+    header = (_build.CSRC / "tri_factor.cuh").read_text()
+    assert not re.search(r"cublas|cusolver|\btorch\b", header, re.I)
+    for name in ("cholesky", "tril_inverse", "chol_inverse_lanes"):
+        assert '#include "tri_factor.cuh"' in (
+            _build.CSRC / f"{name}.cu").read_text()
