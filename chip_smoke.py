@@ -17,13 +17,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    the one PyTorch library call that computes the same function where
    there is one (``library_ms``; the port never calls it) and the least
    time the card could take for the work (``bound_ms``: bytes over 3.35
-   TB/s or FLOPs over 67 TFLOP/s, whichever is larger):
+   TB/s or FLOPs over 67 TFLOP/s, whichever is larger; ``schur_wwt``'s
+   three TF32 products per multiply-add over 495 TFLOP/s):
    ``cholesky_lanes`` at the probe shapes (rtol and atol 2e-4, the bar of
    the JAX package's lanes-Cholesky test; a non-PD matrix NaNs its own
    factor only); ``bmm64``, ``contract_short64`` and ``contract_long64``
    at the refine tier's shapes for cls_32 B=32 (the main path), cls_64 B=8
    and mkp_10 B=32, and on tests/test_df32.py's inputs (relative error at
-   most 1e-11: max |kernel - plain| / max |plain|); ``rhs_bucket``,
+   most 1e-11: max |kernel - plain| / max |plain|), ``bmm64`` also around
+   its fragment edges (n = 7 ... 129, 1 and 33 matrices, float64 and
+   float32 right operands; two launches bit for bit; the float32 operand
+   must reach the kernel without an upcast op); ``rhs_bucket``,
    ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes
    and tests/test_fused.py's, against their plain versions and against
    float64 numpy references (the exact solve of the live subsystem for
@@ -31,7 +35,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
    at the float32 tiers' shapes for cls_32 B=32, cls_64 B=8 and mkp_10
    B=32, at tests/test_pallas.py's and tests/test_lanes_chol.py's shapes,
-   and at n = 300 (the device-memory path), against their plain versions
+   at n = 300 (the device-memory path), and ``schur_wwt`` around its panel
+   and copy-width edges (mp = 16, 17, 80, 81; odd F, F % 4 == 0; the
+   result symmetric), against their plain versions
    and float64 numpy references at those tests' bars (PALLAS_BARS), NaN
    per matrix, two launches bit for bit.
 4. float64 path: batched interior-point relaxation solves through
@@ -80,8 +86,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. profile: per request and route one torch.profiler pass (device busy
    time, kernel launches in all and per iteration, the ops with the most
    device time) and the host syncs of one solve by source line (CUDA sync
-   debug mode); the pallas routes and the "on" tier on library factors
-   on the direct requests.
+   debug mode); the non-fused refine routes, the pallas routes and the
+   "on" tier on library factors on the direct requests only (the profiles
+   take two thirds of the run).
 
 The kernel launch counters are set to 0 just before each path (float64,
 refine, fused, on_pallas, refine_pallas, lite_pallas) and read just
@@ -89,7 +96,7 @@ after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
-run takes about 10 minutes on an H100, the build included.
+run takes 6 to 9 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -161,7 +168,14 @@ TRI_SHAPES = [("cls_32 B=32 X/S", (32, 2), 65), ("cls_32 B=32 Schur", (32,), 66)
 GRAM_SHAPES = [("cls_32 B=32", 32, 66, 4290), ("cls_64 B=8", 8, 130, 16770),
                ("mkp_10 B=32", 32, 46, 101), ("test_pallas", 2, 35, 577),
                ("test_pallas", 1, 8, 64), ("test_pallas", 3, 130, 1024),
-               ("test_pallas F-chunk", 1, 16, 1024)]
+               ("test_pallas F-chunk", 1, 16, 1024),
+               # one and two row panels, 4-, 8- and 16-byte copies
+               ("edge mp=16 odd F", 2, 16, 101), ("edge mp=17 F%4=0", 2, 17, 256),
+               ("edge mp=80 odd F", 1, 80, 515), ("edge mp=81 F%4=0", 2, 81, 1028)]
+# bmm64 around the 16 x 8 x 16 fragment and the 72-column tile: n, for 1
+# and 33 matrices each, float64 and float32 right operands
+BMM_EDGE_N = (7, 8, 9, 17, 64, 65, 72, 73, 129)
+BMM_EDGE_G = (1, 33)
 PALLAS_MAIN = {"cholesky": "cls_32 B=32 X/S", "tril_inverse": "cls_32 B=32 X/S",
                "chol_inverse_lanes": "cls_32 B=32 X/S",
                "schur_wwt": "cls_32 B=32"}
@@ -169,12 +183,15 @@ PALLAS_MAIN = {"cholesky": "cls_32 B=32 X/S", "tril_inverse": "cls_32 B=32 X/S",
 # max |reference| (cholesky, tril_inverse, schur_wwt), or (rtol, atol)
 PALLAS_BARS = {"cholesky": 1e-4, "tril_inverse": 1e-4, "schur_wwt": 1e-5,
                "chol_inverse_lanes": (3e-3, 3e-3)}
-# the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
-# FLOP/s of float32 outside the tensor cores and of float64 on them (both
-# 67 T); the bound of a call is the larger of its bytes and its FLOPs over
-# these
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, FLOP/s of
+# float32 outside the tensor cores and of float64 on them (both 67 T), and
+# of TF32 on the tensor cores; the bound of a call is the larger of its
+# bytes and its FLOPs over these.  schur_wwt computes each multiply-add of
+# the lower triangle as three TF32 products (a hi/lo split), so its FLOPs
+# count three times, over the TF32 peak
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 # (leading shape, n) of the matrix stacks cholesky_lanes is checked and
 # timed at; (32, 10) and (8, 10) are the stacked probe ladders of the main
 # path (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
@@ -214,13 +231,17 @@ GAMMA = 1e3
 REPS = 25
 LAUNCHES = 10
 PROBE_PAIRS = 3      # float64 path: probe kernel vs plain probe
-ROUTE_ROUNDS = 6     # the refine routes and float64, in turns (cut from 8
-                     # to make room for the pallas routes' timing)
-PALLAS_ROUNDS = 6    # the pallas routes, their twins and float64
+ROUTE_ROUNDS = 5     # the refine routes and float64, in turns
+PALLAS_ROUNDS = 5    # the pallas routes, their twins and float64
+
+
+T0 = time.perf_counter()
 
 
 def log(tag: str, **kw) -> None:
-    print(json.dumps({"phase": tag, **kw}), flush=True)
+    """One JSON line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": tag, "t": round(time.perf_counter() - T0, 1),
+                      **kw}), flush=True)
 
 
 def card_line() -> str:
@@ -279,11 +300,13 @@ def kernel_bound(name: str, args, out) -> dict:
     """The least time the card could take for one call of kernel ``name``
     on ``args`` giving ``out``: its bytes (each input tensor read once,
     each output written once) over the memory rate, or its FLOPs over the
-    peak rate, whichever is larger."""
+    peak rate of their type, whichever is larger."""
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if isinstance(t, torch.Tensor))
     tb, tf = nbytes / PEAK_BYTES, work_flops(name, args) / PEAK_FLOPS
+    if name == "schur_wwt":
+        tf = 3 * work_flops(name, args) / PEAK_TF32_FLOPS
     return {"bound_ms": 1e3 * max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations"}
 
@@ -457,27 +480,74 @@ def df32_cases(device):
     return cases
 
 
+def df32_check(name, label, args) -> tuple:
+    """One df32 kernel against its plain version at DF32_TOL: one launch
+    counted, a float64 result of the plain version's shape, two launches
+    bit for bit.  Returns (kernel output, max abs error, relative error)."""
+    wrapper = KERNELS[name][0]
+    before = wrapper.launches
+    got = wrapper(*args)
+    want = PLAIN[name](*args)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{name}: no launch counted at {label}")
+    if got.dtype != torch.float64 or got.shape != want.shape:
+        raise AssertionError(f"{name} {label}: {got.dtype} "
+                             f"{tuple(got.shape)} vs {tuple(want.shape)}")
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-300)
+    if not rel <= DF32_TOL:
+        raise AssertionError(f"{name} {label}: relative error {rel}")
+    if not bool((got == wrapper(*args)).all()):
+        raise AssertionError(f"{name} {label}: two launches differ")
+    return got, err, rel
+
+
+def ops_of(fn, args) -> list:
+    """Names of the ATen ops one call of ``fn`` dispatches."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.key.startswith("aten::")})
+
+
+def bmm64_edge_phase(device) -> None:
+    """``bmm64`` around its fragment and tile edges, float64 and float32
+    right operands, held to its plain version (no timing)."""
+    rng = np.random.default_rng(4)
+    worst = 0.0
+    for n in BMM_EDGE_N:
+        for G in BMM_EDGE_G:
+            A = torch.as_tensor(rng.standard_normal((G, n, n)), device=device)
+            B = torch.as_tensor(rng.standard_normal((G, n, n)), device=device)
+            for Bx in (B, B.float()):
+                _, _, rel = df32_check(
+                    "bmm64", f"edge ({G}, {n}) {str(Bx.dtype)[6:]} B", (A, Bx))
+                worst = max(worst, rel)
+    log("kernel_edges", name="bmm64", n=BMM_EDGE_N, G=BMM_EDGE_G,
+        right_operands=["float64", "float32"], max_rel_err=worst,
+        repeat_bit_for_bit=True)
+
+
 def df32_phase(device) -> dict:
     """Check and time the three df32 kernels against their plain
     versions, and ``bmm64`` against ``torch.matmul`` (the contractions mix
     float32 and float64 operands: no one library call computes them);
     returns the main-path entry of each."""
     out = {}
+    bmm64_edge_phase(device)
     for name, label, args in df32_cases(device):
         wrapper = KERNELS[name][0]
-        before = wrapper.launches
-        got = wrapper(*args)
-        want = PLAIN[name](*args)
-        torch.cuda.synchronize()
-        if wrapper.launches != before + 1:
-            raise AssertionError(f"{name}: no launch counted at {label}")
-        if got.dtype != torch.float64 or got.shape != want.shape:
-            raise AssertionError(f"{name} {label}: {got.dtype} "
-                                 f"{tuple(got.shape)} vs {tuple(want.shape)}")
-        err = float((got - want).abs().max())
-        rel = err / max(float(want.abs().max()), 1e-300)
-        if not rel <= DF32_TOL:
-            raise AssertionError(f"{name} {label}: relative error {rel}")
+        got, err, rel = df32_check(name, label, args)
+        if name == "bmm64" and args[1].dtype == torch.float32:
+            # the float32 right operand reaches the kernel as it is
+            ops = ops_of(wrapper, args)
+            log("kernel_ops", name=name, shape=label, aten_ops=ops)
+            if "aten::_to_copy" in ops or "aten::copy_" in ops:
+                raise AssertionError(f"{name} {label}: upcast before the "
+                                     f"launch: {ops}")
         fns = [wrapper, PLAIN[name]]
         lib = name == "bmm64" and args[1].dtype == torch.float64
         if lib:
@@ -693,7 +763,10 @@ def pallas_check(name, label, args, ref, bad) -> tuple:
             if not x <= bar * scale:
                 raise AssertionError(f"{name} {label}: {x} from the {what}, "
                                      f"bar {bar} * {scale}")
-    if name != "schur_wwt":
+    if name == "schur_wwt":
+        if not bool((got == got.mT).all()):
+            raise AssertionError(f"{name} {label}: not symmetric")
+    else:
         if not bool((torch.triu(got, diagonal=1) == 0).all()):
             raise AssertionError(f"{name} {label}: nonzero above the diagonal")
         n = got.shape[-1]
@@ -1223,9 +1296,10 @@ def main() -> int:
                            "refine_fused": fset,
                            "on_pallas": pallas["on_pallas"]},
                   {"on_pallas": 5e-6})
-    for label, _, data, req, _ in cases:
+    for label, _, data, req, is_direct in cases:
         for route, s in routes.items():
-            profile_one(label, data, req, s, route)
+            if is_direct or route in ("refine_fused", "f64"):
+                profile_one(label, data, req, s, route)
     for label, _, data, req, _ in direct:
         for route, s in f32_routes.items():
             profile_one(label, data, req, s, route)

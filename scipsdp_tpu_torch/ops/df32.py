@@ -16,8 +16,10 @@ public functions and their meaning and drops the hi/lo pairs
 
 ``M`` is static ``(J, F)`` (shared by every g) or per instance ``(G, J, F)``.
 Operands are float64, or float32 for an f32-valued operand of the tier (the
-Schur features ``Wall``, ``S^-1``), which is upcast exactly; every result is
-float64.
+Schur features ``Wall``, ``S^-1``): the kernels read ``M`` and the right
+operand of :func:`bmm64` as float32 and widen them exactly on the way in (no
+upcast pass before the launch), the plain versions upcast first; every
+result is float64.
 
 Each function has a plain version beside it (``*_plain``: a float64
 ``torch.einsum`` after the exact upcast).  A wrapper takes the plain version
@@ -58,7 +60,7 @@ def contract_long64_plain(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {   # of each C entry point <name>_f64, the stream last
-    "bmm64": (_P, _P, _P, ctypes.c_longlong, _I, _P),
+    "bmm64": (_P, _P, _P, ctypes.c_longlong, _I, _I, _P),
     "contract_short64": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "contract_long64": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -89,14 +91,15 @@ def _int32(name: str, *dims: int) -> None:
 
 def bmm64(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """``A @ B`` over stacks of square matrices of one shape (..., n, n),
-    float64 result.  CUDA: ``csrc/bmm64.cu``."""
+    float64 result.  CUDA: ``csrc/bmm64.cu`` (a float32 B is read as
+    float32)."""
     if _on_cpu("bmm64", A, B):
         return bmm64_plain(A, B)
     if A.shape != B.shape or A.dim() < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"bmm64: two (..., n, n) stacks of one shape "
                          f"expected, got {tuple(A.shape)}, {tuple(B.shape)}")
     A = A.to(_F64).contiguous()
-    B = B.to(_F64).contiguous()
+    B = B.contiguous()
     out = torch.empty_like(A)
     n = A.shape[-1]
     G = A.numel() // (n * n) if n else 0
@@ -104,7 +107,8 @@ def bmm64(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         return out
     _int32("bmm64", G)
     _build.launch("bmm64", _ARGTYPES["bmm64"], A.device, A.data_ptr(),
-                  B.data_ptr(), out.data_ptr(), G, n)
+                  B.data_ptr(), out.data_ptr(), G, n,
+                  int(B.dtype == torch.float32))
     bmm64.launches += 1
     return out
 

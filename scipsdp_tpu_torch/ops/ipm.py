@@ -1102,7 +1102,10 @@ def ipm_solve(
         Sinv32 = tuple(sym(torch.einsum("xkba,xkbc->xkac", Lsinv[t],
                                         Lsinv[t])) for t in bidx)
         if not use_fused:
-            Sinv64 = tuple(Sinv32[t].to(dtype) for t in bidx)
+            # bmm64 reads the float32 S^-1 as it is; its plain version
+            # would upcast it at every product, so it gets one exact upcast
+            Sinv_mm = Sinv32 if mm_f64 is df32.bmm64 else tuple(
+                Sinv32[t].to(dtype) for t in bidx)
 
         def astar_f64(P):
             """sum_t einsum('kjab,xkba->xj', A_t, P_t)."""
@@ -1209,7 +1212,7 @@ def ipm_solve(
             float32)."""
             if use_fused:
                 return direction_fused(Rc, rcl, rclb, rcub)
-            PsiSinv = [mm_f64(Rc[t] - XRp[t], Sinv64[t]) for t in bidx]
+            PsiSinv = [mm_f64(Rc[t] - XRp[t], Sinv_mm[t]) for t in bidx]
             rhs = lp_rhs(st, ev, astar_f64(PsiSinv),
                          lambda w: long64(GallT, w), rcl, rclb, rcub)
             dy = schur_solve(torch.where(pre.fix, 0.0, rhs))
@@ -1219,7 +1222,7 @@ def ipm_solve(
             # the dX recovery stays exact: the recovered primal must track
             # the size-mu complementarity targets
             dX = tuple(torch.where(pad_outer[t], sym(mm_f64(
-                Rc[t] - mm_f64(st.X[t], dS[t]), Sinv64[t])), 0.0)
+                Rc[t] - mm_f64(st.X[t], dS[t]), Sinv_mm[t])), 0.0)
                 for t in bidx)
             dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
                 st, ev, dy, long64(Gall_c, dy), rcl, rclb, rcub)

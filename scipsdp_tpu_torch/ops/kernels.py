@@ -37,12 +37,16 @@ _ARGTYPES = {   # of each C entry point <name>_f32, the stream last
     "chol_inverse_lanes": (_P, _P, _P, _LL, _I, _P),
     "schur_wwt": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
 }
-# Schur Gram: F split so that about this many (tile, batch, chunk) blocks
-# run, with at least _GRAM_MIN_CHUNK columns in a chunk
-_GRAM_BLOCKS = 1024
-_GRAM_MIN_CHUNK = 256
-_GRAM_TILE = 32
-
+# Schur Gram (csrc/schur_wwt.cu): rows in panels of _GRAM_PANEL, one block
+# per (pair of panels, batch element, F-chunk); F split so that about
+# _GRAM_BLOCKS blocks run (eight per SM: short blocks balance best, in
+# the timings of profile_torch_kernels.py), with at least _GRAM_MIN_CHUNK
+# columns in a chunk and every chunk a multiple of the _GRAM_SLAB columns a
+# pipeline stage holds
+_GRAM_PANEL = 80
+_GRAM_SLAB = 32
+_GRAM_BLOCKS = 1056
+_GRAM_MIN_CHUNK = 128
 
 def cholesky_lanes_plain(A: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`cholesky_lanes`: ``torch.linalg.cholesky_ex``
@@ -170,25 +174,33 @@ def chol_inverse_lanes(A: torch.Tensor) -> torch.Tensor:
     return _per_matrix(chol_inverse_lanes, A, workspace=True)
 
 
+def gram_panels(mp: int) -> int:
+    """Row panels of :func:`schur_wwt`'s kernel: _GRAM_PANEL rows each, the
+    last one shorter; the kernel's grid has one entry per pair of panels
+    on or below the diagonal."""
+    return -(-mp // _GRAM_PANEL)
+
+
 def gram_chunks(B: int, mp: int, F: int) -> tuple:
     """(nchunks, chunk_len) of :func:`schur_wwt`'s F split, from the shapes
-    alone: about _GRAM_BLOCKS blocks of (lower output tile, batch element,
+    alone: about _GRAM_BLOCKS blocks of (pair of row panels, batch element,
     chunk), every chunk a multiple of 32 columns and non-empty."""
-    tiles = -(-mp // _GRAM_TILE)
-    lower = B * tiles * (tiles + 1) // 2
-    nchunks = max(1, min(-(-F // _GRAM_MIN_CHUNK), -(-_GRAM_BLOCKS // lower)))
+    panels = gram_panels(mp)
+    pairs = B * panels * (panels + 1) // 2
+    nchunks = max(1, min(-(-F // _GRAM_MIN_CHUNK), -(-_GRAM_BLOCKS // pairs)))
     chunk_len = -(-F // nchunks)
-    chunk_len = -(-chunk_len // _GRAM_TILE) * _GRAM_TILE
+    chunk_len = -(-chunk_len // _GRAM_SLAB) * _GRAM_SLAB
     return -(-F // chunk_len), chunk_len
 
 
 def schur_wwt(W: torch.Tensor) -> torch.Tensor:
-    """``M = W W^T`` per matrix of a float32 stack W (..., mp, F), in full
-    float32 (no TF32), symmetric.
+    """``M = W W^T`` per matrix of a float32 stack W (..., mp, F), to
+    float32 accuracy, symmetric.
 
-    CUDA: ``csrc/schur_wwt.cu`` (F split across blocks into a float32
-    workspace allocated here, the partial tiles added in a fixed order).
-    CPU: :func:`schur_wwt_plain`.
+    CUDA: ``csrc/schur_wwt.cu`` (three TF32 tensor-core products per
+    multiply-add on a hi/lo split of W; F split across blocks into a
+    float32 workspace allocated here, the partial sums added in a fixed
+    order).  CPU: :func:`schur_wwt_plain`.
     """
     if _on_cpu("schur_wwt", W, square=False):
         return schur_wwt_plain(W)

@@ -235,6 +235,43 @@ def test_cpu_wrappers_are_the_plain_versions():
     assert [getattr(df32, k).launches for k in KERNELS] == before
 
 
+@pytest.mark.parametrize("G,n", [(1, 7), (33, 9), (2, 17), (3, 65)])
+def test_bmm_float32_right_operand_on_cpu(G, n):
+    """A float32 right operand (the CUDA kernel reads it as float32)
+    through the wrapper on the CPU: float64 out, the plain version's bits,
+    and the bits of the product with the operand upcast beforehand."""
+    rng = np.random.default_rng(13)
+    A = _t(rng.standard_normal((G, n, n)))
+    B32 = _t(rng.standard_normal((G, n, n)).astype(np.float32))
+    got = df32.bmm64(A, B32)
+    assert got.dtype == torch.float64 and got.shape == (G, n, n)
+    torch.testing.assert_close(got, df32.bmm64_plain(A, B32), rtol=0, atol=0)
+    torch.testing.assert_close(got, df32.bmm64_plain(A, B32.double()),
+                               rtol=0, atol=0)
+
+
+def test_bmm_entry_point_takes_the_float32_flag():
+    """The C entry point's signature as the wrapper declares it: three
+    pointers, G, n, the b_is_f32 flag, the stream."""
+    src = (_build.CSRC / "bmm64.cu").read_text()
+    assert "int n, int b_is_f32, void* stream)" in src
+    assert len(df32._ARGTYPES["bmm64"]) == 7
+    assert "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64" in src
+
+
+def test_bmm_shape_and_device_errors():
+    """Stacks of different shapes, operands on two devices and an
+    unsupported type or device raise."""
+    A = torch.zeros((2, 3, 3), dtype=torch.float64)
+    with pytest.raises((RuntimeError, ValueError)):
+        df32.bmm64(A, torch.zeros((2, 4, 4), dtype=torch.float64))
+    meta = torch.empty((2, 3, 3), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError, match="different devices"):
+        df32.bmm64(A, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        df32.bmm64(meta, meta.float())
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
     """A device that is neither CPU nor CUDA, or operands on two devices,
     raise instead of falling back."""

@@ -163,17 +163,106 @@ def test_wrappers_take_float32_only_and_raise_off_cpu_and_cuda():
 
 @pytest.mark.parametrize("B,mp,F", [(32, 66, 4290), (8, 130, 16770),
                                     (32, 46, 101), (3, 130, 1024),
-                                    (1, 16, 1024), (2, 35, 577), (1, 8, 1)])
+                                    (1, 16, 1024), (2, 35, 577), (1, 8, 1),
+                                    (2, 16, 101), (2, 17, 256), (1, 80, 515),
+                                    (2, 81, 1028), (5, 200, 33),
+                                    (700, 9, 4099)])
 def test_gram_chunks_cover_f(B, mp, F):
-    """The Schur Gram's F split: chunks of a multiple of 32 columns, every
-    chunk non-empty, together exactly F; at the main path's shapes enough
-    (tile, batch, chunk) blocks for the card."""
+    """The Schur Gram's F split: chunks of a multiple of 32 columns (the
+    kernel's pipeline stage), every chunk non-empty, together exactly F;
+    at the main path's shapes enough (panel pair, batch, chunk) blocks for
+    the card."""
     nchunks, chunk_len = kernels.gram_chunks(B, mp, F)
     assert chunk_len % 32 == 0 and nchunks >= 1
     assert (nchunks - 1) * chunk_len < F <= nchunks * chunk_len
-    tiles = -(-mp // 32)
+    panels = kernels.gram_panels(mp)
     if F >= 4096:
-        assert B * tiles * (tiles + 1) // 2 * nchunks >= 500
+        assert B * panels * (panels + 1) // 2 * nchunks >= 500
+
+
+@pytest.mark.parametrize("mp", [1, 8, 16, 17, 35, 46, 66, 80, 81, 130, 160,
+                                161, 300])
+def test_gram_panels_cover_mp(mp):
+    """Row panels of 80 cover mp exactly: the last one non-empty and at
+    most a whole panel; mp <= 80 (cls_32, mkp_10) is one panel, so one
+    block stages every row of W."""
+    panels = kernels.gram_panels(mp)
+    assert (panels - 1) * 80 < mp <= panels * 80
+    assert (panels == 1) == (mp <= 80)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), nearest, ties away from
+    zero: cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _add_f32(acc, term64, toward_zero):
+    """acc + term64 rounded once to float32: to nearest, or toward zero as
+    the tensor core's accumulator does."""
+    exact = acc.astype(np.float64) + term64
+    out = exact.astype(np.float32)
+    if toward_zero:
+        over = np.abs(out.astype(np.float64)) > np.abs(exact)
+        out = np.where(over, np.nextafter(out, np.float32(0)), out)
+    return out
+
+
+def _gram_3xtf32(W, toward_zero):
+    """numpy emulation of csrc/schur_wwt.cu: W split into hi = tf32(W) and
+    lo = tf32(W - hi); per F-chunk (gram_chunks) and 32-column slab the
+    products lo hi, hi lo, hi hi of each 8-column step accumulated in
+    float32, each slab sum added to the chunk's sum by a rounded float32
+    add, the chunk sums added in order; the lower triangle mirrored, as the
+    kernel writes it."""
+    B, mp, F = W.shape
+    hi = _tf32(W)
+    lo = _tf32(W - hi)
+    hi64, lo64 = hi.astype(np.float64), lo.astype(np.float64)
+    nchunks, chunk_len = kernels.gram_chunks(B, mp, F)
+    total = np.zeros((B, mp, mp), np.float32)
+    for c in range(nchunks):
+        acc = np.zeros((B, mp, mp), np.float32)
+        for s0 in range(c * chunk_len, min((c + 1) * chunk_len, F), 32):
+            part = np.zeros((B, mp, mp), np.float32)
+            for k0 in range(s0, min(s0 + 32, F), 8):
+                k = slice(k0, min(k0 + 8, F))
+                for a, b in ((lo64, hi64), (hi64, lo64), (hi64, hi64)):
+                    part = _add_f32(part, np.einsum(
+                        "xik,xjk->xij", a[:, :, k], b[:, :, k]), toward_zero)
+            acc = acc + part
+        total = total + acc
+    lower = np.tril(total)
+    return lower + np.transpose(np.tril(total, -1), (0, 2, 1))
+
+
+@pytest.mark.parametrize("toward_zero", [False, True])
+@pytest.mark.parametrize("B,mp,F,scaled", [(2, 35, 577, False),
+                                           (3, 130, 1024, False),
+                                           (1, 66, 4290, False),
+                                           (2, 66, 1200, True)])
+def test_gram_3xtf32_arithmetic_meets_the_float32_bar(B, mp, F, scaled,
+                                                      toward_zero):
+    """The arithmetic of the CUDA Gram kernel (three TF32 products per
+    multiply-add, float32 accumulation per slab), emulated in numpy with
+    the accumulator rounding to nearest and toward zero, stays within
+    1e-5 of the largest entry of the float64 Gram, also for rows scaled by
+    e^U(-4, 4); plain TF32 (hi hi alone) does not."""
+    rng = np.random.default_rng(8)
+    W = rng.standard_normal((B, mp, F)).astype(np.float32)
+    if scaled:
+        W *= np.exp(rng.uniform(-4, 4, (B, mp, 1))).astype(np.float32)
+    W64 = W.astype(np.float64)
+    exact = np.einsum("xif,xjf->xij", W64, W64)
+    scale = np.abs(exact).max()
+    M = _gram_3xtf32(W, toward_zero)
+    assert M.dtype == np.float32
+    assert np.abs(M - exact).max() / scale < 1e-5
+    assert (M == np.transpose(M, (0, 2, 1))).all()
+    h = _tf32(W).astype(np.float64)
+    plain_tf32 = np.einsum("xif,xjf->xij", h, h)
+    assert np.abs(plain_tf32 - exact).max() / scale > 1e-5
 
 
 def test_kernel_sources_and_build_paths():
