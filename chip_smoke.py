@@ -12,18 +12,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 3. kernel checks, each kernel against its plain PyTorch version on the
    same inputs, timed with CUDA events in turns after warm-up (median of
    REPS samples of LAUNCHES back-to-back calls: "eager" times, which
-   include the host's launch cost; all but ``cholesky_lanes`` also as
-   device time, the LAUNCHES calls replayed from one CUDA graph), beside
-   the one PyTorch library call that computes the same function where
-   there is one (``library_ms``; the port never calls it) and the least
+   include the host's launch cost; and as device time, the LAUNCHES calls
+   replayed from one CUDA graph), beside the one PyTorch library call
+   that computes the same function where there is one (``library_ms``;
+   the port never calls it) and the least
    time the card could take for the work (``bound_ms``: bytes over 3.35
    TB/s or FLOPs over 67 TFLOP/s, whichever is larger; ``schur_wwt``'s
    three TF32 products per multiply-add over 495 TFLOP/s):
-   ``cholesky_lanes`` at the probe shapes (rtol and atol 2e-4, the bar of
-   the JAX package's lanes-Cholesky test; a non-PD matrix NaNs its own
-   factor only); ``bmm64``, ``contract_short64`` and ``contract_long64``
-   at the refine tier's shapes for cls_32 B=32 (the main path), cls_64 B=8
-   and mkp_10 B=32, and on tests/test_df32.py's inputs (relative error at
+   ``cholesky_lanes`` at the probe shapes and an ill-conditioned cls_64
+   stack (against its plain version and float64 numpy at rtol and atol
+   2e-4, the bar of the JAX package's lanes-Cholesky test; exact zeros
+   above the diagonal; a non-PD matrix NaNs its own factor only; two
+   launches bit for bit) and at its pivot edges (a subnormal pivot NaNs
+   its factor, a +inf one gives +inf and zeros below it); ``bmm64``, ``contract_short64`` and
+   ``contract_long64`` at the refine tier's shapes for cls_32 B=32 (the
+   main path), cls_64 B=8 and mkp_10 B=32, and on tests/test_df32.py's inputs (relative error at
    most 1e-11: max |kernel - plain| / max |plain|), ``bmm64`` also around
    its fragment edges (n = 7 ... 129, 1 and 33 matrices, float64 and
    float32 right operands; two launches bit for bit; the float32 operand
@@ -35,7 +38,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
    at the float32 tiers' shapes for cls_32 B=32, cls_64 B=8 and mkp_10
    B=32, at tests/test_pallas.py's and tests/test_lanes_chol.py's shapes,
-   at n = 300 (the device-memory path), and ``schur_wwt`` around its panel
+   at n = 300 (the device-memory path), ``tril_inverse`` also on an
+   ill-conditioned cls_64 factor (rows scaled by e^U(-4, 4), as the IPM's
+   factors are near the optimum), and ``schur_wwt`` around its panel
    and copy-width edges (mp = 16, 17, 80, 81; odd F, F % 4 == 0; the
    result symmetric), against their plain versions
    and float64 numpy references at those tests' bars (PALLAS_BARS), NaN
@@ -139,7 +144,8 @@ KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
     "chol_inverse_lanes": (kernels.chol_inverse_lanes,
                            "scipsdp_tpu/ops/pallas_kernels.py:353"),
 }
-PLAIN = {"bmm64": df32.bmm64_plain,
+PLAIN = {"cholesky_lanes": kernels.cholesky_lanes_plain,
+         "bmm64": df32.bmm64_plain,
          "contract_short64": df32.contract_short64_plain,
          "contract_long64": df32.contract_long64_plain,
          "rhs_bucket": fused.rhs_bucket_plain,
@@ -152,18 +158,23 @@ PLAIN = {"bmm64": df32.bmm64_plain,
 DF32 = ("bmm64", "contract_short64", "contract_long64")
 FUSED = ("rhs_bucket", "schur_solve_fused", "recover_bucket")
 PALLAS = ("cholesky", "tril_inverse", "schur_wwt")     # the solver's three
-# the per-matrix float32 kernels' cases: (label, leading shape, n); the X/S
-# stack (B slots x 2 blocks) and the Schur factor (B, mp, mp) of the float32
-# tiers at cls_32 B=32 (the main path), cls_64 B=8 and mkp_10 B=32, then
-# tests/test_pallas.py's and tests/test_lanes_chol.py's shapes, then n =
-# 300 (device memory)
-TRI_SHAPES = [("cls_32 B=32 X/S", (32, 2), 65), ("cls_32 B=32 Schur", (32,), 66),
-              ("cls_64 B=8 X/S", (8, 2), 129), ("cls_64 B=8 Schur", (8,), 130),
-              ("mkp_10 B=32 X/S", (32, 2), 10), ("mkp_10 B=32 Schur", (32,), 46),
-              ("test_pallas", (4,), 20), ("test_pallas", (2,), 48),
-              ("test_pallas", (1,), 96), ("test_pallas", (1,), 128),
-              ("test_lanes_chol", (20,), 43), ("test_lanes_chol", (3, 4), 9),
-              ("device memory", (4,), 300)]
+# the per-matrix float32 kernels' cases: (label, leading shape, n, s); the
+# X/S stack (B slots x 2 blocks) and the Schur factor (B, mp, mp) of the
+# float32 tiers at cls_32 B=32 (the main path), cls_64 B=8 and mkp_10 B=32,
+# then tests/test_pallas.py's and tests/test_lanes_chol.py's shapes, then n =
+# 300 (device memory); s > 0 scales the rows and columns of the positive
+# definite matrix (so the rows of its factor) by e^U(-s, s), an IPM-like
+# ill-conditioned factor
+TRI_SHAPES = [("cls_32 B=32 X/S", (32, 2), 65, 0),
+              ("cls_32 B=32 Schur", (32,), 66, 0),
+              ("cls_64 B=8 X/S", (8, 2), 129, 0), ("cls_64 B=8 Schur", (8,), 130, 0),
+              ("cls_64 B=8 X/S ill-conditioned", (8, 2), 129, 4),
+              ("mkp_10 B=32 X/S", (32, 2), 10, 0),
+              ("mkp_10 B=32 Schur", (32,), 46, 0),
+              ("test_pallas", (4,), 20, 0), ("test_pallas", (2,), 48, 0),
+              ("test_pallas", (1,), 96, 0), ("test_pallas", (1,), 128, 0),
+              ("test_lanes_chol", (20,), 43, 0), ("test_lanes_chol", (3, 4), 9, 0),
+              ("device memory", (4,), 300, 0)]
 # the Schur Gram's cases: (label, B, mp, F = K n^2 + LP rows)
 GRAM_SHAPES = [("cls_32 B=32", 32, 66, 4290), ("cls_64 B=8", 8, 130, 16770),
                ("mkp_10 B=32", 32, 46, 101), ("test_pallas", 2, 35, 577),
@@ -182,7 +193,8 @@ PALLAS_MAIN = {"cholesky": "cls_32 B=32 X/S", "tril_inverse": "cls_32 B=32 X/S",
 # tests/test_pallas.py's and tests/test_lanes_chol.py's bars: relative to
 # max |reference| (cholesky, tril_inverse, schur_wwt), or (rtol, atol)
 PALLAS_BARS = {"cholesky": 1e-4, "tril_inverse": 1e-4, "schur_wwt": 1e-5,
-               "chol_inverse_lanes": (3e-3, 3e-3)}
+               "chol_inverse_lanes": (3e-3, 3e-3),
+               "cholesky_lanes": (2e-4, 2e-4)}
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s, FLOP/s of
 # float32 outside the tensor cores and of float64 on them (both 67 T), and
 # of TF32 on the tensor cores; the bound of a call is the larger of its
@@ -192,14 +204,15 @@ PALLAS_BARS = {"cholesky": 1e-4, "tril_inverse": 1e-4, "schur_wwt": 1e-5,
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
-# (leading shape, n) of the matrix stacks cholesky_lanes is checked and
-# timed at; (32, 10) and (8, 10) are the stacked probe ladders of the main
-# path (B slots x 2*5 trials) at cls_32 B=32 and cls_64 B=8
-CHOL_SHAPES = [((3,), 5), ((16,), 43), ((130,), 17), ((1,), 64),
-               ((384,), 65), ((32, 10), 65), ((320,), 97), ((320,), 129),
-               ((8, 10), 129), ((14720,), 10), ((4,), 300)]
-CHOL_MAIN = ((32, 10), 65)
-CHOL_TOL = 2e-4
+# (leading shape, n, s) of the matrix stacks cholesky_lanes is checked and
+# timed at (s as in TRI_SHAPES); (32, 10) and (8, 10) are the stacked probe
+# ladders of the main path (B slots x 2*5 trials) at cls_32 B=32 and cls_64
+# B=8, (14720,) x 10 mkp_10's at B=1472
+CHOL_SHAPES = [((3,), 5, 0), ((16,), 43, 0), ((130,), 17, 0), ((1,), 64, 0),
+               ((384,), 65, 0), ((32, 10), 65, 0), ((320,), 97, 0),
+               ((320,), 129, 0), ((8, 10), 129, 0), ((8, 2), 129, 4),
+               ((14720,), 10, 0), ((4,), 300, 0)]
+CHOL_MAIN = ((32, 10), 65, 0)
 DF32_TOL = 1e-11
 # the refine tier's shapes per instance: (label, mp, K n^2, LP rows P, B,
 # K, n); cls_32 B=32 is the main path
@@ -260,9 +273,15 @@ def reset_counts() -> None:
         w.launches = 0
 
 
-def spd_stack(rng, N: int, n: int) -> np.ndarray:
+def spd_stack(rng, N: int, n: int, s: float = 0) -> np.ndarray:
+    """tests/test_lanes_chol.py's positive definite stack a a^T + n I; with
+    s > 0 its rows and columns scaled by e^U(-s, s)."""
     a = rng.standard_normal((N, n, n))
-    return np.einsum("bij,bkj->bik", a, a) + n * np.eye(n)
+    A = np.einsum("bij,bkj->bik", a, a) + n * np.eye(n)
+    if s:
+        d = np.exp(rng.uniform(-s, s, (N, n)))
+        A = d[:, :, None] * A * d[:, None, :]
+    return A
 
 
 def work_flops(name: str, args) -> float:
@@ -296,14 +315,23 @@ def work_flops(name: str, args) -> float:
     raise KeyError(name)
 
 
+# the kernels that read only the lower triangle of their (..., n, n) input
+LOWER_READERS = ("cholesky_lanes", "cholesky", "tril_inverse",
+                 "chol_inverse_lanes")
+
+
 def kernel_bound(name: str, args, out) -> dict:
     """The least time the card could take for one call of kernel ``name``
-    on ``args`` giving ``out``: its bytes (each input tensor read once,
-    each output written once) over the memory rate, or its FLOPs over the
-    peak rate of their type, whichever is larger."""
+    on ``args`` giving ``out``: its bytes (each input tensor read once, of
+    a LOWER_READERS input n(n+1)/2 floats a matrix; each output written
+    once) over the memory rate, or its FLOPs over the peak rate of their
+    type, whichever is larger."""
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if isinstance(t, torch.Tensor))
+    if name in LOWER_READERS:
+        n = args[0].shape[-1]
+        nbytes -= args[0].numel() // n * (n - 1) // 2 * args[0].element_size()
     tb, tf = nbytes / PEAK_BYTES, work_flops(name, args) / PEAK_FLOPS
     if name == "schur_wwt":
         tf = 3 * work_flops(name, args) / PEAK_TF32_FLOPS
@@ -377,43 +405,67 @@ def build_phase() -> float:
 
 
 def cholesky_phase(device) -> dict:
-    """Check and time cholesky_lanes against its plain version and
-    ``torch.linalg.cholesky_ex`` (eager times)."""
+    """Check cholesky_lanes against its plain version and float64 numpy
+    (``pallas_check``: bars, zeros above the diagonal, NaN per matrix, two
+    launches bit for bit) and time it beside them and
+    ``torch.linalg.cholesky_ex``, as device time (CUDA graphs) and eager."""
     rng = np.random.default_rng(0)
     worst, main = 0.0, None
-    for lead, n in CHOL_SHAPES:
+    for lead, n, scale in CHOL_SHAPES:
         N = int(np.prod(lead))
-        A = torch.as_tensor(spd_stack(rng, N, n).reshape(lead + (n, n)),
-                            dtype=torch.float32, device=device)
-        L = kernels.cholesky_lanes(A)
-        Lp = kernels.cholesky_lanes_plain(A)
-        torch.cuda.synchronize()
-        err = float((L - Lp).abs().max())
-        torch.testing.assert_close(L, Lp, rtol=CHOL_TOL, atol=CHOL_TOL)
-        if not bool((torch.triu(L, diagonal=1) == 0).all()):
-            raise AssertionError(f"nonzero above the diagonal at {(N, n)}")
-        # one indefinite matrix: NaN in its own factor and nowhere else
-        bad = N // 2
-        Ab = A.clone()
-        Ab.view(N, n, n)[bad] -= 4.0 * n * torch.eye(n, device=device)
-        nan_mat = torch.isnan(kernels.cholesky_lanes(Ab)).view(N, -1).any(1)
-        torch.cuda.synchronize()
-        expect = torch.zeros(N, dtype=torch.bool, device=device)
-        expect[bad] = True
-        if not bool((nan_mat == expect).all()):
-            raise AssertionError(f"NaN pattern wrong at {(N, n)}: "
-                                 f"{nan_mat.nonzero().flatten().tolist()}")
-        t, tp, tl = eager_times([kernels.cholesky_lanes,
-                                 kernels.cholesky_lanes_plain,
-                                 torch.linalg.cholesky_ex], (A,))
+        A32 = spd_stack(rng, N, n, scale).astype(np.float32)
+        A = torch.as_tensor(A32.reshape(lead + (n, n)), device=device)
+        ref = np.linalg.cholesky(A32.astype(np.float64)).reshape(A.shape)
+        label = f"{list(lead)} x {n}" + (" ill-conditioned" if scale else "")
+        L, err, err_ref = pallas_check("cholesky_lanes", label, (A,), ref,
+                                       N // 2)
+        fns = [kernels.cholesky_lanes, kernels.cholesky_lanes_plain,
+               torch.linalg.cholesky_ex]
+        t, tp, tl = graph_times(fns, (A,))
+        te, tpe, tle = eager_times(fns, (A,))
+        entry = {"max_abs_err": err, "max_abs_err_vs_numpy": err_ref,
+                 "ms": t, "plain_ms": tp, "library_ms": tl, "eager_ms": te,
+                 "plain_eager_ms": tpe, "library_eager_ms": tle,
+                 **kernel_bound("cholesky_lanes", (A,), L)}
         log("kernel", name="cholesky_lanes", shape=list(lead) + [n, n],
-            max_abs_err=err, ms=t, plain_ms=tp, library_ms=tl,
-            nan_own_matrix_only=True)
+            scale=scale, nan_own_matrix_only=True, repeat_bit_for_bit=True,
+            **entry)
         worst = max(worst, err)
-        if (lead, n) == CHOL_MAIN:
-            main = {"ms": t, "plain_ms": tp, "library_ms": tl,
-                    **kernel_bound("cholesky_lanes", (A,), L)}
-    return {"max_abs_err": worst, **main}
+        if (lead, n, scale) == CHOL_MAIN:
+            main = entry
+    for n in (10, 65, 300):
+        log("kernel", name="cholesky_lanes", n=n,
+            pivot_edges=pivot_edges(device, n))
+    return {**main, "max_abs_err": worst}
+
+
+def pivot_edges(device, n: int) -> dict:
+    """cholesky_lanes on pivots that are no positive normal float, beside
+    a clean matrix S (spd_stack): S with its first pivot subnormal (read as
+    zero, as the JAX kernel does where subnormals flush: NaN in that factor
+    only) and with it +inf (+inf on the diagonal, zeros below it, the rest
+    the factor of S[1:, 1:]: sqrt, then divide).  Raises on a mismatch;
+    returns the errors from the plain version."""
+    S = torch.as_tensor(spd_stack(np.random.default_rng(3), 1, n)[0],
+                        dtype=torch.float32, device=device)
+    A = S.repeat(3, 1, 1)
+    A[0, 0, 0] = 1e-40
+    A[1, 0, 0] = float("inf")
+    L = kernels.cholesky_lanes(A)
+    torch.cuda.synchronize()
+    nan = torch.isnan(L).flatten(1).any(1).tolist()
+    if nan != [True, False, False]:
+        raise AssertionError(f"cholesky_lanes pivot edges n={n}: NaN {nan}")
+    if not (L[1, 0, 0] == float("inf") and bool((L[1, 1:, 0] == 0).all())):
+        raise AssertionError(f"cholesky_lanes +inf pivot n={n}: column 0 "
+                             f"{L[1, :4, 0].tolist()}")
+    rest = kernels.cholesky_lanes_plain(S[1:, 1:])
+    clean = kernels.cholesky_lanes_plain(S)
+    torch.testing.assert_close(L[1, 1:, 1:], rest, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(L[2], clean, rtol=2e-4, atol=2e-4)
+    return {"inf_pivot_err": float((L[1, 1:, 1:] - rest).abs().max()),
+            "clean_err": float((L[2] - clean).abs().max()),
+            "nan_per_matrix": nan}
 
 
 def df32_cases(device):
@@ -704,9 +756,9 @@ def pallas_cases(device):
     triangular inverse takes their float64 factors rounded to float32."""
     rng = np.random.default_rng(3)
     cases = []
-    for label, lead, n in TRI_SHAPES:
+    for label, lead, n, scale in TRI_SHAPES:
         N = int(np.prod(lead))
-        A64 = spd_stack(rng, N, n)
+        A64 = spd_stack(rng, N, n, scale)
         L64 = np.linalg.cholesky(A64)
         A = torch.as_tensor(A64.reshape(lead + (n, n)), dtype=torch.float32,
                             device=device)
@@ -714,12 +766,15 @@ def pallas_cases(device):
                              device=device)
         Linv64 = np.linalg.inv(L64.astype(np.float32).astype(np.float64))
         eye = torch.eye(n, dtype=torch.float32, device=device).expand(Lt.shape)
-        cases.append((label, {
+        per_kernel = {
             "cholesky": ((A,), L64, torch.linalg.cholesky_ex, N // 2),
             "tril_inverse": ((Lt,), Linv64, lambda L, eye=eye: (
                 torch.linalg.solve_triangular(L, eye, upper=False)), N // 2),
             "chol_inverse_lanes": ((A,), np.linalg.inv(L64), None, N // 2),
-        }))
+        }
+        if scale:   # the ill-conditioned factor is tril_inverse's case
+            per_kernel = {"tril_inverse": per_kernel["tril_inverse"]}
+        cases.append((label, per_kernel))
     for label, B, mp, F in GRAM_SHAPES:
         W = rng.standard_normal((B, mp, F)).astype(np.float32)
         W64 = W.astype(np.float64)

@@ -31,9 +31,9 @@ from scipsdp_tpu_torch.ops.eigen import cholesky as cholesky_plain
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {   # of each C entry point <name>_f32, the stream last
-    "cholesky_lanes": (_P, _P, _LL, _I, _P),
+    "cholesky_lanes": (_P, _P, _LL, _I, _I, _P),
     "cholesky": (_P, _P, _LL, _I, _P),
-    "tril_inverse": (_P, _P, _LL, _I, _P),
+    "tril_inverse": (_P, _P, _LL, _I, _I, _P),
     "chol_inverse_lanes": (_P, _P, _P, _LL, _I, _P),
     "schur_wwt": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
 }
@@ -47,6 +47,20 @@ _GRAM_PANEL = 80
 _GRAM_SLAB = 32
 _GRAM_BLOCKS = 1056
 _GRAM_MIN_CHUNK = 128
+# Blocked triangular kernels (csrc/cholesky_lanes.cu, csrc/tril_inverse.cu):
+# columns in blocks of _TRI_NB, the Cholesky's panels and the triangular
+# inverse's block columns (one thread block per matrix and block column);
+# the sources' kNB, which their C entry points check the block count against
+_TRI_NB = 16
+
+
+def tri_blocks(n: int) -> tuple:
+    """(nb, nblk) of :func:`cholesky_lanes`'s panels and
+    :func:`tril_inverse`'s block columns for matrices of size n: blocks of
+    nb columns, the last one non-empty, together covering n.  The kernels
+    take nblk; nb is fixed in their sources."""
+    return _TRI_NB, max(1, -(-n // _TRI_NB))
+
 
 def cholesky_lanes_plain(A: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`cholesky_lanes`: ``torch.linalg.cholesky_ex``
@@ -80,8 +94,10 @@ def cholesky_lanes(A: torch.Tensor) -> torch.Tensor:
     exact zeros above the diagonal; a matrix that is not positive definite
     comes back with NaN in its own factor only.
 
-    CUDA: ``csrc/cholesky_lanes.cu``, one thread block per matrix, on the
-    current stream.  CPU: :func:`cholesky_lanes_plain`.
+    CUDA: ``csrc/cholesky_lanes.cu``, blocked right-looking in panels of
+    :func:`tri_blocks`' nb columns, one thread block per matrix (one group
+    of nb lanes for n <= nb), on the current stream.  CPU:
+    :func:`cholesky_lanes_plain`.
     """
     if A.device.type == "cpu":
         return cholesky_lanes_plain(A)
@@ -94,7 +110,7 @@ def cholesky_lanes(A: torch.Tensor) -> torch.Tensor:
                          f"{tuple(A.shape)}")
     if not A.is_contiguous():
         raise ValueError("cholesky_lanes: input must be contiguous")
-    return _per_matrix(cholesky_lanes, A)
+    return _per_matrix(cholesky_lanes, A, blocked=True)
 
 
 def _on_cpu(name: str, A: torch.Tensor, square: bool = True) -> bool:
@@ -112,10 +128,12 @@ def _on_cpu(name: str, A: torch.Tensor, square: bool = True) -> bool:
     return False
 
 
-def _per_matrix(wrapper, A: torch.Tensor, workspace: bool = False):
-    """Launch a one-block-per-matrix kernel on the stack ``A`` (..., n, n)
-    into a new tensor of its shape; counts the launch on ``wrapper``.
-    ``workspace``: the kernel also takes a scratch stack of A's size."""
+def _per_matrix(wrapper, A: torch.Tensor, workspace: bool = False,
+                blocked: bool = False):
+    """Launch a per-matrix kernel on the stack ``A`` (..., n, n) into a new
+    tensor of its shape; counts the launch on ``wrapper``.  ``workspace``:
+    the kernel also takes a scratch stack of A's size; ``blocked``: it also
+    takes :func:`tri_blocks`' block count nblk."""
     name = wrapper.__name__
     A = A.contiguous()
     out = torch.empty_like(A)
@@ -123,12 +141,13 @@ def _per_matrix(wrapper, A: torch.Tensor, workspace: bool = False):
     nmat = A.numel() // (n * n) if n else 0
     if nmat == 0:
         return out
-    if nmat >= 2**31:
+    split = tri_blocks(n)[1:] if blocked else ()
+    if nmat * (split[0] if blocked else 1) >= 2**31:
         raise ValueError(f"{name}: {nmat} matrices exceed one grid")
     ptrs = [A.data_ptr(), out.data_ptr()]
     if workspace:   # freed after the launch: the allocator orders reuse
         ptrs.append(torch.empty_like(A).data_ptr())   # on this stream
-    _build.launch(name, _ARGTYPES[name], A.device, *ptrs, nmat, n,
+    _build.launch(name, _ARGTYPES[name], A.device, *ptrs, nmat, n, *split,
                   entry=f"{name}_f32")
     wrapper.launches += 1
     return out
@@ -154,11 +173,13 @@ def tril_inverse(L: torch.Tensor) -> torch.Tensor:
     (..., n, n), read from the lower triangle, exactly lower triangular; a
     NaN in a matrix stays in that matrix's inverse.
 
-    CUDA: ``csrc/tril_inverse.cu``.  CPU: :func:`tril_inverse_plain`.
+    CUDA: ``csrc/tril_inverse.cu``, one thread block per matrix and block
+    column of :func:`tri_blocks`' nb columns.  CPU:
+    :func:`tril_inverse_plain`.
     """
     if _on_cpu("tril_inverse", L):
         return tril_inverse_plain(L)
-    return _per_matrix(tril_inverse, L)
+    return _per_matrix(tril_inverse, L, blocked=True)
 
 
 def chol_inverse_lanes(A: torch.Tensor) -> torch.Tensor:

@@ -265,6 +265,122 @@ def test_gram_3xtf32_arithmetic_meets_the_float32_bar(B, mp, F, scaled,
     assert np.abs(plain_tf32 - exact).max() / scale > 1e-5
 
 
+def _fma32(a, b, c):
+    """fmaf in float32: the product of two float32 values is exact in
+    float64, so a * b + c is rounded once there and once to float32 (the
+    two roundings differ from one only in rare ties)."""
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _trinv_blocked(L):
+    """numpy emulation of csrc/tril_inverse.cu in float32 at
+    ``kernels.tri_blocks``' split (identity past n): every diagonal block
+    inverted column by column, x_r = (delta_rc - sum_{k<r} L[r][k] x_k)
+    times the rounded 1 / L[r][r], fmaf in k order; then per block column j
+    X_jj = L_jj^-1 and, row block by row block, R = sum_k L_ik X_kj (fmaf in
+    k order) and X_ij = -(sum_l (L_ii^-1)[r][l] R[l][c]) (fmaf in l order).
+    Only the lower triangle of L is read."""
+    N, n, _ = L.shape
+    nb, nblk = kernels.tri_blocks(n)
+    npd = nb * nblk
+    Lp = np.zeros((N, npd, npd), np.float32)
+    Lp[:, :n, :n] = np.tril(L)
+    Lp[:, np.arange(n, npd), np.arange(n, npd)] = 1.0
+    below = np.arange(nb)[None, :] <= np.arange(nb)[:, None]   # c <= r
+    Dinv = np.zeros((N, nblk, nb, nb), np.float32)
+    for i in range(nblk):
+        D = Lp[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb]
+        x = np.zeros((N, nb, nb), np.float32)
+        for r in range(nb):
+            acc = np.repeat(np.eye(nb, dtype=np.float32)[r][None], N, 0)
+            for k in range(r):
+                acc = _fma32(-D[:, r, k][:, None], x[:, k, :], acc)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                rinv = (np.float32(1) / D[:, r, r]).astype(np.float32)
+                x[:, r, :] = np.where(below[r], acc * rinv[:, None], 0.0)
+        Dinv[:, i] = x
+    X = np.zeros((N, npd, npd), np.float32)
+    for j in range(nblk):
+        c0 = j * nb
+        X[:, c0:c0 + nb, c0:c0 + nb] = Dinv[:, j]
+        for i in range(j + 1, nblk):
+            i0 = i * nb
+            R = np.zeros((N, nb, nb), np.float32)
+            for k in range(c0, i0):
+                R = _fma32(Lp[:, i0:i0 + nb, k][:, :, None],
+                           X[:, k, c0:c0 + nb][:, None, :], R)
+            acc = np.zeros((N, nb, nb), np.float32)
+            for l in range(nb):
+                acc = _fma32(Dinv[:, i, :, l][:, :, None], R[:, l, :][:, None, :],
+                             acc)
+            X[:, i0:i0 + nb, c0:c0 + nb] = -acc
+    return X[:, :n, :n]
+
+
+@pytest.mark.parametrize("case", ["n=10", "n=17", "n=65", "n=129", "n=130",
+                                  "n=300", "ill-conditioned", "nan"])
+def test_tril_inverse_blocked_arithmetic_meets_the_bar(case):
+    """The CUDA kernel's arithmetic (blocked by tri_blocks), emulated in
+    float32, within tests/test_pallas.py's bar (1e-4 max |X|) of the
+    float64 inverse of the float32 factor, of the JAX kernel in interpret
+    mode and of the plain version, on ragged n, on an IPM-like
+    ill-conditioned factor (rows scaled by e^U(-4, 4)), and with a NaN in
+    one factor: NaN in that inverse only, the others unchanged; exact
+    zeros above the diagonal."""
+    rng = np.random.default_rng(9)
+    n = {"ill-conditioned": 129, "nan": 65}.get(case) or int(case[2:])
+    N = 2 if n == 300 else 3
+    L = np.linalg.cholesky(_spd(rng, N, n).astype(np.float64))
+    if case == "ill-conditioned":
+        L = L * np.exp(rng.uniform(-4, 4, (N, n, 1)))
+    L = L.astype(np.float32)
+    clean = _trinv_blocked(L)
+    if case == "nan":
+        L[1, n - 1, 0] = np.nan
+    X = _trinv_blocked(L)
+    jx = np.asarray(jpk.tril_inverse(jnp.asarray(L), interpret=True))
+    assert (np.triu(X, 1) == 0).all()
+    if case == "nan":
+        for b in range(N):
+            assert np.isnan(X[b]).any() == (b == 1)
+            assert np.isnan(jx[b]).any() == (b == 1)
+        np.testing.assert_array_equal(X[[0, 2]], clean[[0, 2]])
+        return
+    ref = np.linalg.inv(L.astype(np.float64))
+    scale = np.abs(ref).max()
+    plain = kernels.tril_inverse_plain(torch.as_tensor(L)).numpy()
+    for other in (ref, jx, plain):
+        assert np.abs(X - other).max() / scale < 1e-4
+
+
+# tests/test_lanes_chol.py's and the solver's n, around the block width
+@pytest.mark.parametrize("n", [1, 5, 10, 15, 16, 17, 32, 33, 43, 46, 65, 66,
+                               129, 130, 300])
+def test_tri_blocks_cover_n(n):
+    """The triangular kernels' split: blocks of nb = 16 columns, the last
+    one non-empty, together exactly n; at the float32 tiers' X/S stacks
+    (cls_32 B=32: 64 x 65, cls_64 B=8: 16 x 129) more blocks of
+    tril_inverse's grid than the card's 132 SMs."""
+    nb, nblk = kernels.tri_blocks(n)
+    assert nb == 16
+    assert (nblk - 1) * nb < n <= nblk * nb
+    stacks = {65: 64, 129: 16}
+    if n in stacks:
+        assert stacks[n] * nblk > 132
+
+
+def test_tri_block_width_one_source_constant():
+    """tri_blocks' nb is the block width fixed in both blocked sources
+    (their only one), and their C entry points take the block count
+    alone."""
+    for name in ("cholesky_lanes", "tril_inverse"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        assert re.findall(r"constexpr int kNB = (\d+);", src) == [
+            str(kernels.tri_blocks(1)[0])], name
+        assert "template" not in src, name
+        assert len(kernels._ARGTYPES[name]) == 6, name
+
+
 def test_kernel_sources_and_build_paths():
     """Each kernel has its own source with a plain C float32 entry point
     and no library call; the shared device code is a header whose bytes
