@@ -31,8 +31,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    its fragment edges (n = 7 ... 129, 1 and 33 matrices, float64 and
    float32 right operands; two launches bit for bit; the float32 operand
    must reach the kernel without an upcast op); ``rhs_bucket``,
-   ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes
-   and tests/test_fused.py's, against their plain versions and against
+   ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes,
+   tests/test_fused.py's and an odd F with one instance's rows all fixed,
+   against their plain versions and against
    float64 numpy references (the exact solve of the live subsystem for
    the Schur solve) at tests/test_fused.py's bars (FUSED_BARS);
    ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
@@ -44,7 +45,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and copy-width edges (mp = 16, 17, 80, 81; odd F, F % 4 == 0; the
    result symmetric), against their plain versions
    and float64 numpy references at those tests' bars (PALLAS_BARS), NaN
-   per matrix, two launches bit for bit.
+   per matrix (``cholesky``: on and below the whole diagonal, zeros
+   above), two launches bit for bit.
 4. float64 path: batched interior-point relaxation solves through
    ``ipm_solve`` with the device's resolved settings (phase32="off", probe
    step rule with the probe kernel): three requests of 32
@@ -223,16 +225,18 @@ DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
              "contract_short64": "cls_32 B=32 W^T v",
              "contract_long64": "cls_32 B=32 W u"}
 # the fused kernels' shapes: (label, B, K, n, mp, F = K n^2 + LP rows,
-# padded); the first three are DF32_SHAPES', then tests/test_fused.py's
-# inputs, then two rows of W long enough for 2 and 4 warps per row in the
-# Schur solve (1 and 8 above); a padded case zeroes the last 3 rows and
-# columns of its last block
-FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False),
-                ("cls_64 B=8", 8, 1, 129, 130, 16770, False),
-                ("mkp_10 B=32", 32, 1, 10, 46, 101, True),
-                ("test_fused", 4, 2, 13, 9, 37, True),
-                ("F=420", 8, 1, 20, 30, 420, True),
-                ("F=700", 8, 1, 26, 40, 700, False)]
+# padded, fixed0); the first three are DF32_SHAPES', then
+# tests/test_fused.py's inputs, then two short-F cases, then an odd F
+# (no cluster size cuts it into whole slices; 4-byte copies); a padded
+# case zeroes the last 3 rows and columns of its last block, a fixed0 case
+# fixes every row of instance 0 (the Schur solve returns 0 there)
+FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False, False),
+                ("cls_64 B=8", 8, 1, 129, 130, 16770, False, False),
+                ("mkp_10 B=32", 32, 1, 10, 46, 101, True, False),
+                ("test_fused", 4, 2, 13, 9, 37, True, False),
+                ("F=420", 8, 1, 20, 30, 420, True, False),
+                ("F=700", 8, 1, 26, 40, 700, False, False),
+                ("F=4097 instance 0 fixed", 4, 1, 20, 66, 4097, False, True)]
 FUSED_MAIN = "cls_32 B=32"
 NREFINE = 3          # the settings' schur_refine
 # tests/test_fused.py's bars, each times max(floor, max |reference|), for
@@ -627,7 +631,8 @@ def _sym(a):
 def fused_cases(device):
     """(label, {kernel: (args, numpy reference)}) at FUSED_SHAPES, with
     tests/test_fused.py's input scales: corrector-scale Rc and X Rp,
-    symmetric A, X and float32 S^-1; the Schur system with two fixed rows,
+    symmetric A, X and float32 S^-1; the Schur system with two fixed rows
+    (every row of instance 0 where FUSED_SHAPES says so),
     its preconditioner built as the refine tier builds it, and the exact
     float64 solve of each live subsystem."""
     rng = np.random.default_rng(2)
@@ -636,7 +641,7 @@ def fused_cases(device):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
 
     cases = []
-    for label, B, K, n, mp, F, padded in FUSED_SHAPES:
+    for label, B, K, n, mp, F, padded, fixed0 in FUSED_SHAPES:
         A = _sym(rng.standard_normal((K, mp, n, n)))
         Rc = rng.standard_normal((B, K, n, n)) * 1e-6
         XRp = rng.standard_normal((B, K, n, n)) * 1e-6
@@ -649,6 +654,7 @@ def fused_cases(device):
         reg = np.full((B, mp), 1e-7)
         fix = np.zeros((B, mp), bool)
         fix[:, -2:] = True
+        fix[0] |= fixed0
         rhs = rng.standard_normal((B, mp))
         W64 = W.astype(np.float64)
         M = np.einsum("bif,bjf->bij", W64, W64) + np.eye(mp) * (
@@ -831,13 +837,20 @@ def pallas_check(name, label, args, ref, bad) -> tuple:
             broken[bad, n - 1, 0] = float("nan")
         else:
             broken[bad] -= 4.0 * n * torch.eye(n, device=flat.device)
-        nan_mat = torch.isnan(wrapper(broken)).reshape(flat.shape[0], -1).any(1)
+        out = wrapper(broken).reshape(flat.shape)
+        nan_mat = torch.isnan(out).reshape(flat.shape[0], -1).any(1)
         torch.cuda.synchronize()
         expect = torch.zeros_like(nan_mat)
         expect[bad] = True
         if not bool((nan_mat == expect).all()):
             raise AssertionError(f"{name} {label}: NaN pattern wrong: "
                                  f"{nan_mat.nonzero().flatten().tolist()}")
+        low = torch.ones(n, n, dtype=torch.bool, device=out.device).tril()
+        if name == "cholesky" and not (bool(torch.isnan(out[bad][low]).all())
+                                       and bool((out[bad][~low] == 0).all())):
+            raise AssertionError(f"{name} {label}: the matrix that is not "
+                                 "positive definite is not NaN on and below "
+                                 "its diagonal with zeros above")
     return got, err, err_ref
 
 

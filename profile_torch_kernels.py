@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Check and tune the redesigned kernels of the PyTorch/CUDA port on one
 CUDA card: the tensor-core kernels ``bmm64`` (float64 DMMA) and
-``schur_wwt`` (3xTF32), and the blocked triangular kernels
-``cholesky_lanes`` and ``tril_inverse``.
+``schur_wwt`` (3xTF32), the blocked triangular kernels ``cholesky_lanes``
+and ``tril_inverse``, the panel-blocked factor-quality ``cholesky`` and
+the fused Schur solve ``schur_solve_fused`` (a cluster an instance).
 
-    python3 profile_torch_kernels.py check [mma|tri]     # build, ptxas, errors
-    python3 profile_torch_kernels.py variants [mma|tri]  # time design variants
-    python3 profile_torch_kernels.py dissect [mma|tri]   # parts cut out
-    python3 profile_torch_kernels.py phases [tri]        # kernel phases
+    python3 profile_torch_kernels.py check [GROUP]     # build, ptxas, errors
+    python3 profile_torch_kernels.py variants [GROUP]  # time design variants
+    python3 profile_torch_kernels.py dissect [GROUP]   # parts cut out
+    python3 profile_torch_kernels.py phases [GROUP]    # kernel phases
+    python3 profile_torch_kernels.py reference         # Schur plans, chaos
 
-The optional second word takes one pair of kernels: ``mma`` the
-tensor-core kernels, ``tri`` the triangular ones (default both).
+GROUP takes one group of kernels: ``mma`` the tensor-core kernels, ``tri``
+the two blocked triangular ones, ``chol`` the factor-quality Cholesky,
+``schur`` the fused Schur solve (default all; ``phases`` without a group
+runs chip_smoke.py's df32 and float32 kernel phases).
 ``check`` builds the sources, prints the compiler's report, and holds
 each kernel against its plain version (and float64 numpy) on a few shapes
 around the fragment and block edges (the triangular kernels through
@@ -28,10 +32,23 @@ times each kernel beside copies with one part taken out (the copies into
 shared memory, the products, the triangular kernels' diagonal-block step,
 the stores, all but the launch), so the differences say what each part
 costs.
+For ``chol`` and ``schur`` the same three modes hold the factor-quality
+Cholesky (``check``: around the panel and shared-memory edges, NaN on
+and below the diagonal of a matrix that is not positive definite) and
+the Schur solve (``check``: every chip_smoke.FUSED_SHAPES case at
+nrefine 0, 1 and 3, and a W that starts off 16-byte alignment;
+``variants``: other cluster sizes and chunks through the same entry
+point, and copies with other constants; ``dissect``: the parent
+commit's cooperative kernel or the cluster kernel, whichever the
+checkout holds, with a part cut out).
 ``phases`` runs ``chip_smoke.py``'s build and its ``df32_phase`` and
 ``pallas_kernel_phase`` (every shape those time, a few minutes); ``phases
-tri`` only the build and ``tri_times`` (the two triangular kernels, their
-plain versions and library calls at the main-path shapes, in graphs).
+tri``, ``phases chol`` and ``phases schur`` only the build and the
+group's kernels, plain versions and library calls at the main-path
+shapes, in graphs.  ``reference`` runs chip_smoke.py's small
+CPU-reference instance through the fused refine route under each cluster
+plan of the Schur solve (iterations against the CPU solve's; every
+call's deviation from the plain version).
 Copied into a checkout of another commit and run there, it times that
 commit's kernels by the same means, for a comparison within one call on
 one card.  Every line printed is one JSON object; the first names the
@@ -50,7 +67,7 @@ import torch
 
 import chip_smoke as cs
 from scipsdp_tpu_torch import _build
-from scipsdp_tpu_torch.ops import df32, kernels
+from scipsdp_tpu_torch.ops import df32, fused, kernels
 
 VARIANT_DIR = _build.BUILD_ROOT.parent / "variants"
 BMM_SHAPES = [("cls_32 X Rp", 32, 65), ("cls_64", 8, 129), ("mkp_10", 1472, 10)]
@@ -74,6 +91,20 @@ TRI_TIMED = [("tril_inverse", "cls_32 X/S", (32, 2), 65),
 # block widths 16 and 32, the shared-memory limits and n = 300
 TRI_CHECK_N = (5, 9, 10, 16, 17, 31, 32, 33, 48, 65, 66, 129, 130, 200, 238,
                300)
+# the factor-quality Cholesky's timed shapes (chip_smoke.TRI_SHAPES' main
+# path: the float32 tiers' X/S stacks and Schur factors) and n = 300, and
+# its checked n (TRI_CHECK_N, and both sides of its 128-thread and
+# shared-memory limits, n = 80 and 224)
+CHOL_TIMED = [("cholesky", "cls_32 X/S", (32, 2), 65),
+              ("cholesky", "cls_32 Schur", (32,), 66),
+              ("cholesky", "cls_64 X/S", (8, 2), 129),
+              ("cholesky", "cls_64 Schur", (8,), 130),
+              ("cholesky", "mkp_10 X/S", (32, 2), 10),
+              ("cholesky", "mkp_10 Schur", (32,), 46),
+              ("cholesky", "n=300", (4,), 300)]
+CHOL_CHECK_N = tuple(sorted(TRI_CHECK_N + (80, 81, 224, 225)))
+# the Schur solve's timed cases: labels of chip_smoke.FUSED_SHAPES
+SCHUR_TIMED = ("cls_32 B=32", "cls_64 B=8", "mkp_10 B=32", "F=420", "F=700")
 
 
 def compiled(name: str, tag: str, src: str) -> ctypes.CDLL:
@@ -102,12 +133,13 @@ def variant(name: str, tag: str, subs: dict) -> ctypes.CDLL:
 
 
 def cut(name: str, tag: str, *edits: tuple) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` with each (text, replacement) applied: a kernel
-    with one part taken out, to time what is left.  Its results are wrong
-    by design; only its time is read."""
+    """``csrc/<name>.cu`` with each (text, replacement[, count]) applied to
+    the ``count`` (default 1) places the text stands: a kernel with one part
+    taken out, to time what is left.  Its results are wrong by design; only
+    its time is read."""
     src = (_build.CSRC / f"{name}.cu").read_text()
-    for text, replacement in edits:
-        if src.count(text) != 1:
+    for text, replacement, *count in edits:
+        if src.count(text) != (count[0] if count else 1):
             raise KeyError(f"{name}.cu: {text!r} found {src.count(text)} "
                            "times")
         src = src.replace(text, replacement)
@@ -172,6 +204,91 @@ CHOL_CUTS = {
     "stores": ("      if (in_smem) O[(size_t)i * n + j]",
                "      if (in_smem && n < 0) O[(size_t)i * n + j]"),
 }
+# Parts of the factor-quality Cholesky cut out.  Every copy, the whole one
+# too, loses its fall-back to the unblocked IEEE factorization
+# (CHOL2_ONCE): a cut that leaves the data out of the fast operations'
+# range must not send its matrices down that path, and on the inputs of
+# the timed shapes no copy with the fall-back takes it.
+CHOL2_ONCE = (("  if (ok && flags[1]) {", "  if (ok && flags[1] && n < 0) {"),)
+CHOL2_CUTS = {
+    "return": ("                    int ld) {\n",
+               "                    int ld) {\n  if (n > 0) return;\n"),
+    "copies": ("        if (in_smem) cp_async4(W + (size_t)r * ld + c, "
+               "A + (size_t)r * n + c);",
+               "        if (in_smem) W[(size_t)r * ld + c] = r == c ? n : 0.f;"),
+    "diagonal factor": (
+        "  const bool exact = __all_sync(kFull, factor_block(a, r, ok, false));",
+        "  const bool exact = true;\n"
+        "  if (k1 < 0) factor_block(a, r, ok, false);"),
+    "exact ops of the diagonal factor": (
+        "      d = sqrt_rn(c);\n      quo = div_rn(a[q], d);",
+        "      d = c * rsqrt_approx(c);\n      quo = a[q] * rcp_approx(d);"),
+    "row solves": ("    for (int i = k1 + tid; i < np; i += nt) {",
+                   "    for (int i = k1 + tid; i < np && n < 0; i += nt) {"),
+    "row divisions": ("        l[q] = div_rn(s, d);",
+                      "        l[q] = s * rcp_approx(d);"),
+    "trailing products": ("      for (int k = 0; k < kNB; ++k) {\n"
+                          "        const float4 pr",
+                          "      for (int k = 0; k < kNB && n < 0; ++k) {\n"
+                          "        const float4 pr"),
+    "stores": ("      else if (in_smem) O[(size_t)i * n + j]",
+               "      else if (in_smem && n < 0) O[(size_t)i * n + j]"),
+}
+# Parts of the Schur solve cut out, for the kernel the checkout holds: the
+# parent commit's cooperative launch (grid-wide barriers, W^T vf a thread
+# a column, W wt a block a row re-reading wt) or the cluster kernel
+SCHUR_RETURN = ("schur_solve_fused_kernel(Args a) {\n",
+                "schur_solve_fused_kernel(Args a) {\n  if (a.B > 0) return;\n")
+SCHUR_EXCHANGE = (
+    ("      double u = *cluster.map_shared_rank(usp + j, 0);\n"
+     "      for (int q = 1; q < C; ++q) u += *cluster.map_shared_rank(usp + j, q);",
+     "      double u = usp[j];\n      for (int q = 1; q < C; ++q) u += usp[j];"),)
+SCHUR_COMPUTE = (
+    ("      for (int t = tid; t < groups * cp; t += kThreads) {",
+     "      for (int t = tid; t < groups * cp && cp < 0; t += kThreads) {"),
+    ("      for (int i0 = warp; i0 < mp; i0 += kRowsAtOnce * kWarps) {",
+     "      for (int i0 = warp; i0 < mp && mp < 0; "
+     "i0 += kRowsAtOnce * kWarps) {"),
+    ("  for (int i0 = warp; i0 < mp; i0 += 2 * kWarps) {",
+     "  for (int i0 = warp; i0 < mp && mp < 0; i0 += 2 * kWarps) {"))
+SCHUR_CUTS = {
+    "cooperative": {
+        "return": (SCHUR_RETURN,),
+        "grid syncs": (
+            ("namespace {\n\nconstexpr int kThreads = 256;",
+             "namespace {\n\nstruct NoSync {\n  __device__ void sync() const {}"
+             "\n};\nconstexpr int kThreads = 256;"),
+            ("  cg::grid_group grid = cg::this_grid();\n", "  NoSync grid;\n")),
+        "W^T vf": (("    for (long long idx = gtid; idx < cols; idx += gsize) {",
+                    "    for (long long idx = gtid; idx < cols && cols < 0; "
+                    "idx += gsize) {"),),
+        "W wt": (("    for (long long row = blockIdx.x; row < rows; "
+                  "row += gridDim.x) {",
+                  "    for (long long row = blockIdx.x; row < rows && rows < 0;"
+                  " row += gridDim.x) {"),),
+        "wt re-reads": (("        acc = fma((double)Wr[f], w[f], acc);",
+                         "        acc = fma((double)Wr[f], (double)f, acc);"),),
+        "preconditioner": (
+            ("  for (long long row = gwarp; row < rows; row += nwarps) {",
+             "  for (long long row = gwarp; row < rows && rows < 0; "
+             "row += nwarps) {"),),
+    },
+    "cluster": {
+        "return": (SCHUR_RETURN,),
+        "staging": (("      cp_async<kBytes>(d + c, s + c);",
+                     "      if (mp < 0) cp_async<kBytes>(d + c, s + c);"),),
+        "W^T vf": SCHUR_COMPUTE[:1],
+        "W wt": SCHUR_COMPUTE[1:2],
+        "preconditioner": SCHUR_COMPUTE[2:],
+        "cluster exchange": SCHUR_EXCHANGE,
+        "cluster barriers and exchange": SCHUR_EXCHANGE + (
+            ("    cluster.sync();\n    // u in", "    __syncthreads();\n    // u in"),
+            ("  if (a.nrefine > 0) cluster.sync();",
+             "  if (a.nrefine > 0) __syncthreads();")),
+        "products, exchange and preconditioner (staging alone)":
+            SCHUR_COMPUTE + SCHUR_EXCHANGE,
+    },
+}
 
 
 def bmm_variant(lib: ctypes.CDLL):
@@ -231,12 +348,12 @@ def tri_variant(lib: ctypes.CDLL, name: str, nb: int):
 
 def tri_case(name: str, lead: tuple, n: int, rng, scale: float = 0):
     """(args, float64 reference) of a triangular kernel: a positive definite
-    stack (chip_smoke.spd_stack) for ``cholesky_lanes``, its factor rounded
-    to float32 for ``tril_inverse``."""
+    stack (chip_smoke.spd_stack) for the Cholesky kernels, its factor
+    rounded to float32 for ``tril_inverse``."""
     N = int(np.prod(lead))
     # without a scale, the call an earlier commit's chip_smoke.py takes
     A64 = cs.spd_stack(rng, N, n, scale) if scale else cs.spd_stack(rng, N, n)
-    if name == "cholesky_lanes":
+    if name in ("cholesky_lanes", "cholesky"):
         A32 = A64.astype(np.float32)
         ref = np.linalg.cholesky(A32.astype(np.float64))
     else:
@@ -248,25 +365,97 @@ def tri_case(name: str, lead: tuple, n: int, rng, scale: float = 0):
 
 def library_call(name: str, n: int, device):
     """The one PyTorch call computing a triangular kernel's function."""
-    if name == "cholesky_lanes":
+    if name in ("cholesky_lanes", "cholesky"):
         return torch.linalg.cholesky_ex
     eye = torch.eye(n, dtype=torch.float32, device=device)
     return lambda L: torch.linalg.solve_triangular(L, eye.expand(L.shape),
                                                    upper=False)
 
 
-def tri_check(device) -> None:
-    names = ("cholesky_lanes", "tril_inverse")
+def ptxas_report(*names: str) -> None:
+    """Build the named sources and log each one's compiler report."""
     _build.build(*names)
     for name in names:
         report = (_build.library_path(name).parent / "build.log").read_text()
         cs.log("ptxas", kernel=name, report=[
             ln for ln in report.splitlines() if "registers" in ln
             or "Compiling" in ln or "spill" in ln or "error" in ln][:40])
+
+
+# A kernel built with csrc/cholesky.cu that holds its sqrt_rn and div_rn
+# to sqrtf and / bit for bit: the square root of every float in
+# [2^-62, 2^62), and as many quotients of pseudo-random operands in that
+# range (dividends of either sign, one in 1,024 a signed zero)
+OPS_CHECK = r"""
+#include "cholesky.cu"
+
+namespace {
+__device__ __forceinline__ unsigned mix(unsigned long long x) {
+  x += 0x9E3779B97F4A7C15ull;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ull;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBull;
+  return (unsigned)(x ^ (x >> 31));
+}
+
+__global__ void ops_check_kernel(unsigned long long n,
+                                 unsigned long long* bad) {
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long k = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x; k < n; k += stride) {
+    const float c = __uint_as_float((65u << 23) + (unsigned)k);
+    if (__float_as_uint(sqrt_rn(c)) != __float_as_uint(sqrtf(c)))
+      atomicAdd(bad, 1ull);
+    const unsigned h = mix(k), g = mix(k ^ (0xA5A5A5A5ull << 32));
+    const float d = __uint_as_float(((65u + h % 124u) << 23) | (g & 0x7fffffu));
+    const unsigned ha = mix(k + 0x1234567ull), ga = mix(~k);
+    float a = __uint_as_float(((65u + ha % 124u) << 23) | (ga & 0x7fffffu) |
+                              (ha & 0x80000000u));
+    if ((k & 1023) == 0) a = (k & 2048) ? -0.f : 0.f;
+    if (__float_as_uint(div_rn(a, d)) != __float_as_uint(a / d))
+      atomicAdd(bad + 1, 1ull);
+  }
+}
+}  // namespace
+
+extern "C" int cholesky_ops_check(unsigned long long n,
+                                  unsigned long long* bad) {
+  ops_check_kernel<<<132 * 16, 256>>>(n, bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def chol_ops_check(device) -> None:
+    """cholesky.cu's branch-free sqrt_rn and div_rn against sqrtf and /,
+    bit for bit, over OPS_CHECK's 124 * 2^23 cases of each."""
+    lib = compiled("cholesky", "ops_check", OPS_CHECK)
+    fn = lib.cholesky_ops_check
+    fn.argtypes = [ctypes.c_ulonglong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
+    n = 124 << 23
+    err = fn(n, bad.data_ptr())
+    torch.cuda.synchronize()
+    if err:
+        raise RuntimeError(f"cholesky_ops_check: CUDA error {err}")
+    wrong = bad.tolist()
+    cs.log("check", kernel="cholesky", exact_ops_cases=n,
+           sqrt_rn_differs=wrong[0], div_rn_differs=wrong[1])
+    if any(wrong):
+        raise AssertionError(f"sqrt_rn / div_rn differ from IEEE: {wrong}")
+
+
+def tri_check(device, names=("cholesky_lanes", "tril_inverse")) -> None:
+    """The blocked triangular kernels against their plain versions and
+    float64 numpy (chip_smoke.pallas_check: bar, zeros above the diagonal,
+    NaN pattern, bits on two launches) at 1 and 5 matrices of each checked
+    n and on two ill-conditioned stacks."""
+    ptxas_report(*names)
     rng = np.random.default_rng(5)
     for name in names:
         worst = {}
-        cases = [(N, n, 0) for n in TRI_CHECK_N for N in (1, 5)]
+        ns = CHOL_CHECK_N if name == "cholesky" else TRI_CHECK_N
+        cases = [(N, n, 0) for n in ns for N in (1, 5)]
         for N, n, scale in cases + [(4, 65, 4), (4, 129, 4)]:
             args, ref = tri_case(name, (N,), n, rng, scale)
             _, err, err_ref = cs.pallas_check(
@@ -275,17 +464,18 @@ def tri_check(device) -> None:
             worst[f"{N}x{n}" + (" ill" if scale else "")] = rel
         cs.log("check", kernel=name, nan_own_matrix_only=True,
                repeat_bit_for_bit=True, rel_err_vs_numpy=worst)
-    for n in (10, 65, 300):
-        cs.log("check", kernel="cholesky_lanes", n=n,
-               pivot_edges=cs.pivot_edges(device, n))
+    if "cholesky_lanes" in names:
+        for n in (10, 65, 300):
+            cs.log("check", kernel="cholesky_lanes", n=n,
+                   pivot_edges=cs.pivot_edges(device, n))
 
 
-def tri_times(device) -> None:
+def tri_times(device, timed=TRI_TIMED) -> None:
     """Each triangular kernel, its plain version and its library call at
-    TRI_TIMED, device ms from CUDA graphs (only the wrappers, so that the
+    ``timed``, device ms from CUDA graphs (only the wrappers, so that the
     same lines run in a checkout of an earlier commit)."""
     rng = np.random.default_rng(6)
-    for name, label, lead, n in TRI_TIMED:
+    for name, label, lead, n in timed:
         args, _ = tri_case(name, lead, n, rng)
         wrapper = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
@@ -295,12 +485,15 @@ def tri_times(device) -> None:
                ms=ms[0], plain_ms=ms[1], library_ms=ms[2])
 
 
-def tri_variants(device) -> None:
+def tri_variants(device, timed=TRI_TIMED) -> None:
     rng = np.random.default_rng(7)
     settings = {   # a substituted constant (key=value) a copy
         "tril_inverse": ["kThreads=64", "kThreads=256", "kNB=32"],
         "cholesky_lanes": ["kThreads=128", "kThreads=512", "kSmallThreads=64",
-                           "kSmallThreads=256", "kNB=32"]}
+                           "kSmallThreads=256", "kNB=32"],
+        "cholesky": ["kThreads=256", "kThreads=1024"]}
+    settings = {k: v for k, v in settings.items()
+                if k in {x[0] for x in timed}}
     calls = {}
     for name, subs in settings.items():
         calls[name] = {}
@@ -309,7 +502,7 @@ def tri_variants(device) -> None:
             lib = variant(name, key + value, {key: int(value)})
             nb = int(value) if key == "kNB" else kernels._TRI_NB
             calls[name][sub] = tri_variant(lib, name, nb)
-    for name, label, lead, n in TRI_TIMED:
+    for name, label, lead, n in timed:
         args, ref = tri_case(name, lead, n, rng)
         fns = {"committed": getattr(kernels, name), **calls[name]}
         for k, f in fns.items():
@@ -322,24 +515,247 @@ def tri_variants(device) -> None:
                ms=dict(zip(fns, cs.graph_times(list(fns.values()), args))))
 
 
-def tri_dissect(device) -> None:
+def tri_dissect(device, groups=(("tril_inverse", TRINV_CUTS, TRI_TIMED),
+                                 ("cholesky_lanes", CHOL_CUTS, TRI_TIMED))):
     """The triangular kernels beside copies with parts cut out
-    (TRINV_CUTS, CHOL_CUTS), in turns, at the main-path shapes."""
+    (TRINV_CUTS, CHOL_CUTS, CHOL2_CUTS), in turns, at the first four
+    main-path shapes of each (and n = 300 for the factor-quality
+    Cholesky)."""
     rng = np.random.default_rng(8)
-    for name, cuts in (("tril_inverse", TRINV_CUTS),
-                       ("cholesky_lanes", CHOL_CUTS)):
-        libs = {"whole": cut(name, "whole"),
-                "empty launch": cut(name, "ret", cuts["return"])}
+    for name, cuts, timed in groups:
+        base = CHOL2_ONCE if name == "cholesky" else ()
+        libs = {"whole": cut(name, "whole", *base),
+                "empty launch": cut(name, "ret", *base, cuts["return"])}
         for part, edit in cuts.items():
             if part != "return":
-                libs[f"no {part}"] = cut(name, part.replace(" ", "_"), edit)
-        shapes = [x for x in TRI_TIMED if x[0] == name][:4]
+                libs[f"no {part}"] = cut(name, part.replace(" ", "_"), *base,
+                                         edit)
+        shapes = [x for x in timed if x[0] == name]
+        shapes = shapes[:4] + [x for x in shapes[4:] if x[3] == 300
+                               and name == "cholesky"]
         for _, label, lead, n in shapes:
             args, _ = tri_case(name, lead, n, rng)
             fns = [*(tri_variant(v, name, kernels._TRI_NB)
                      for v in libs.values()), library_call(name, n, device)]
             cs.log("dissect", kernel=name, shape=label, lead=list(lead), n=n,
                    ms=dict(zip([*libs, "library"], cs.graph_times(fns, args))))
+
+
+def schur_caller(lib: ctypes.CDLL, plan=None):
+    """The C entry of a built copy of ``schur_solve_fused.cu`` as a
+    function of the wrapper's arguments: the parent commit's cooperative
+    entry (scratch wt and v32, no plan), or the cluster entry with ``plan``
+    (C, slice, chunk; the wrapper's unless given)."""
+    fn = lib.schur_solve_fused_f64
+    fn.argtypes = list(fused._ARGTYPES["schur_solve_fused"])
+    fn.restype = ctypes.c_int
+    cooperative = len(fn.argtypes) == 15
+
+    def call(W, rhs, Minv, dsc, diag, reg, fix, nrefine):
+        B, mp, F = W.shape
+        dy = torch.empty((B, mp), dtype=torch.float64, device=W.device)
+        ptrs = [W, rhs, Minv, dsc, diag, reg, fix]
+        if cooperative:
+            ptrs += [torch.empty((B, F), dtype=torch.float64, device=W.device),
+                     torch.empty((B, mp), dtype=torch.float32, device=W.device)]
+            extra = ()
+        else:
+            extra = plan or fused._device_plan(W.device.index, B, mp, F)
+        err = fn(*(x.data_ptr() for x in ptrs + [dy]), B, mp, F, nrefine,
+                 *extra, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"schur_solve_fused copy: CUDA error {err}")
+        return dy
+    return call
+
+
+def schur_cases(device, labels=None) -> dict:
+    """label -> the Schur solve's arguments at chip_smoke.FUSED_SHAPES (all
+    of them, or those labelled)."""
+    return {label: per_kernel["schur_solve_fused"][0]
+            for label, per_kernel in cs.fused_cases(device)
+            if labels is None or label in labels}
+
+
+def schur_check(device) -> None:
+    """The Schur solve against its plain version at every FUSED_SHAPES case
+    and at nrefine 0, 1 and 3: at nrefine 3 within chip_smoke's bar
+    (1e-10 max|plain|); at 0 and 1 within 1e-6 max|plain| (the plain
+    version takes its preconditioner product in float32 arithmetic, the
+    kernel in float64 rounded to float32: the two part by a float32 ulp
+    until the refinement passes remove it); two launches bit for bit;
+    fixed rows exactly 0.  Also with W starting 4 bytes off a 16-byte
+    boundary (the kernel's 4-byte copies)."""
+    ptxas_report("schur_solve_fused")
+    cases = schur_cases(device)
+    args = cases["cls_32 B=32"]
+    W = args[0]
+    off = torch.empty(W.numel() + 1, dtype=W.dtype, device=W.device)
+    off[1:] = W.flatten()
+    cases["cls_32 B=32, W off 16-byte alignment"] = (
+        off[1:].view(W.shape),) + tuple(args[1:])
+    for label, args in cases.items():
+        W, fix = args[0], args[6]
+        for nrefine in (0, 1, 3):
+            a = args[:7] + (nrefine,)
+            got = fused.schur_solve_fused(*a)
+            again = fused.schur_solve_fused(*a)
+            want = fused.schur_solve_fused_plain(*a)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            rel = float((got - want).abs().max()) / scale
+            bar = 1e-10 if nrefine == cs.NREFINE else 1e-6
+            same = bool((got == again).all())
+            zero = bool((got[fix] == 0).all())
+            cs.log("check", kernel="schur_solve_fused", shape=label,
+                   B=W.shape[0], mp=W.shape[1], F=W.shape[2],
+                   nrefine=nrefine,
+                   plan=fused._device_plan(W.device.index, *W.shape),
+                   rel_err_vs_plain=rel, bar=bar, repeat_same=same,
+                   fixed_rows_zero=zero)
+            if not (rel <= bar and same and zero):
+                raise AssertionError(f"schur_solve_fused {label} nrefine "
+                                     f"{nrefine}: {rel} {same} {zero}")
+
+
+def schur_times(device) -> None:
+    """The Schur solve and its plain version at SCHUR_TIMED, device ms from
+    CUDA graphs (only the wrappers, so that the same lines run in a
+    checkout of an earlier commit)."""
+    for label, args in schur_cases(device, SCHUR_TIMED).items():
+        ms = cs.graph_times([fused.schur_solve_fused,
+                             fused.schur_solve_fused_plain], args)
+        cs.log("schur_times", kernel="schur_solve_fused", shape=label,
+               shape_bmf=list(args[0].shape), ms=ms[0], plain_ms=ms[1])
+
+
+def schur_variants(device) -> None:
+    """The committed plan beside other cluster sizes and chunks (the same
+    library, other arguments) and copies with other constants, in turns,
+    each held to the plain version."""
+    libs = {"threads=512": variant("schur_solve_fused", "t512",
+                                   {"kThreads": 512}),
+            "rows_at_once=1": variant("schur_solve_fused", "r1",
+                                      {"kRowsAtOnce": 1}),
+            "rows_at_once=4": variant("schur_solve_fused", "r4",
+                                      {"kRowsAtOnce": 4})}
+    base = _build.load("schur_solve_fused")
+    for label, args in schur_cases(device, SCHUR_TIMED).items():
+        B, mp, F = args[0].shape
+        C, slice_, chunk = fused._device_plan(device.index or 0, B, mp, F)
+        plans = {}
+        for c in (1, 2, 3, 4, 6, 8, 12, 16):
+            plan = fused.schur_split(mp, F, c)
+            if c != C and plan is not None:
+                plans[f"C={c}" + (" streamed" if plan[2] < plan[1]
+                                  else "")] = plan
+            if plan is not None and plan[2] < plan[1] and c in (8, 16):
+                half = plan[:2] + (max(4, plan[2] // 2 - plan[2] // 2 % 4),)
+                plans[f"C={c} half chunks"] = half
+        held = {}
+        for k, p in {"committed": (C, slice_, chunk), **plans}.items():
+            n = ctypes.c_int(0)
+            err = base.schur_solve_fused_clusters(mp, F, *p, ctypes.byref(n))
+            held[k] = n.value if err == 0 else f"CUDA error {err}"
+        cs.log("clusters", kernel="schur_solve_fused", shape=label,
+               plans={"committed": (C, slice_, chunk), **plans},
+               clusters_at_once=held)
+        fns = {"committed": fused.schur_solve_fused,
+               **{k: schur_caller(base, p) for k, p in plans.items()},
+               **{k: schur_caller(v) for k, v in libs.items()},
+               "plain": fused.schur_solve_fused_plain}
+        want = fused.schur_solve_fused_plain(*args)
+        for k, f in list(fns.items()):
+            try:
+                got = f(*args)
+            except RuntimeError as err:   # a copy the plan does not fit
+                cs.log("variants", kernel="schur_solve_fused", shape=label,
+                       variant=k, refused=str(err))
+                del fns[k]
+                continue
+            rel = float((got - want).abs().max() / want.abs().max())
+            if not rel <= 1e-10:
+                raise AssertionError(f"schur_solve_fused {k} {label}: {rel}")
+        cs.log("variants", kernel="schur_solve_fused", shape=label,
+               plan=(C, slice_, chunk), ms=dict(zip(
+                   fns, cs.graph_times(list(fns.values()), args))))
+
+
+def schur_dissect(device) -> None:
+    """The Schur solve the checkout holds beside copies with parts cut out
+    (SCHUR_CUTS: the parent commit's cooperative kernel or the cluster
+    kernel), in turns, at SCHUR_TIMED's first three cases."""
+    src = (_build.CSRC / "schur_solve_fused.cu").read_text()
+    kind = next(k for k, cuts in SCHUR_CUTS.items() if all(
+        src.count(text) == 1 for edits in cuts.values() for text, _ in edits))
+    libs = {"whole": cut("schur_solve_fused", "whole")}
+    for part, edits in SCHUR_CUTS[kind].items():
+        key = "empty launch" if part == "return" else f"no {part}"
+        libs[key] = cut("schur_solve_fused", re.sub(r"\W+", "_", part),
+                        *edits)
+    for label, args in schur_cases(device, SCHUR_TIMED[:3]).items():
+        fns = [schur_caller(v) for v in libs.values()]
+        cs.log("dissect", kernel="schur_solve_fused", design=kind,
+               shape=label, ms=dict(zip(libs, cs.graph_times(fns, args))))
+
+
+def schur_reference(device) -> None:
+    """chip_smoke.py's small CPU-reference instance (cpu_reference) through
+    the fused refine route on the card, under the wrapper's plan and then
+    under each cluster size 1-9 of ``fused.schur_split`` (the wrapper's
+    plan only in a checkout without it): iterations and statuses beside
+    the CPU solve's, and the worst per-instance deviation from the plain
+    version over the solve's Schur solves."""
+    import dataclasses
+    from scipsdp_tpu_torch.models.families import cardinality_least_squares
+    from scipsdp_tpu_torch.models.problem import densify
+    from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
+    from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
+
+    s = dataclasses.replace(resolve_backend_autos(Settings(), device).ipm,
+                            max_iters=100, phase32="refine",
+                            fused_direction="on", step_rule="probe",
+                            use_lanes_chol=True)
+    prob = cardinality_least_squares(8, 16, 3, seed=1)
+    dense = densify(prob)
+    lb, ub = cs.node_boxes(prob, 8, 8, np.random.default_rng(1))
+    req = cs.request(prob, lb, ub, "direct")
+    cpu = ipm_solve(build_ipm_data(dense, "cpu"), *req, settings=s)
+    data = build_ipm_data(dense, device)
+    wrapper = fused.schur_solve_fused
+    worst, shapes = [], []
+
+    def held_to_plain(*args):
+        got = wrapper(*args)
+        want = fused.schur_solve_fused_plain(*args)
+        rel = (got - want).abs().amax(1) / want.abs().amax(1).clamp_min(1e-300)
+        worst.append(float(torch.nan_to_num(rel, nan=0.0).max()))
+        shapes.append(tuple(args[0].shape))
+        return got
+
+    def solve(plan):
+        worst.clear()
+        out = ipm_solve(data, *req, settings=s)
+        cs.log("reference", kernel="schur_solve_fused", plan=plan,
+               shape=shapes[0], iters=out.iters, cpu_iters=cpu.iters,
+               same_status=bool((out.status.cpu() == cpu.status).all()),
+               worst_rel_vs_plain=max(worst))
+
+    held_to_plain.launches = 0
+    fused.schur_solve_fused = held_to_plain
+    keep = getattr(fused, "_device_plan", None)
+    try:
+        solve("wrapper's")
+        if hasattr(fused, "schur_split"):
+            B, mp, F = shapes[0]
+            for c in range(1, 10):
+                plan = fused.schur_split(mp, F, c)
+                fused._device_plan = lambda *a, _p=plan: _p
+                solve(plan)
+    finally:
+        fused.schur_solve_fused = wrapper
+        if keep is not None:
+            fused._device_plan = keep
 
 
 def check(device) -> None:
@@ -485,13 +901,20 @@ def main() -> int:
     cs.log("env", card=cs.card_line(), torch=torch.__version__)
     mode = sys.argv[1] if len(sys.argv) > 1 else "check"
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
+    if mode == "reference":   # the fused route on the CPU-reference case
+        schur_reference(device)
+        return 0
     if mode == "phases":
         cs.build_phase()
         if which == "tri":
             tri_times(device)
-            return 0
-        cs.df32_phase(device)
-        cs.pallas_kernel_phase(device)
+        elif which == "chol":
+            tri_times(device, CHOL_TIMED)
+        elif which == "schur":
+            schur_times(device)
+        else:
+            cs.df32_phase(device)
+            cs.pallas_kernel_phase(device)
         return 0
     if which in ("all", "mma"):
         check(device)
@@ -505,6 +928,20 @@ def main() -> int:
             tri_variants(device)
         if mode == "dissect":
             tri_dissect(device)
+    if which in ("all", "chol"):
+        chol_ops_check(device)
+        tri_check(device, ("cholesky",))
+        if mode == "variants":
+            tri_variants(device, CHOL_TIMED)
+        if mode == "dissect":
+            tri_dissect(device, (("cholesky", CHOL2_CUTS, CHOL_TIMED),))
+    if which in ("all", "schur"):
+        if mode != "dissect":   # dissect also runs the parent's kernel
+            schur_check(device)
+        if mode == "variants":
+            schur_variants(device)
+        if mode == "dissect":
+            schur_dissect(device)
     return 0
 
 

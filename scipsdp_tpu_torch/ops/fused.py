@@ -11,7 +11,8 @@ direction and bucket replace that chain:
   the Schur right-hand side (``csrc/rhs_bucket.cu``);
 * :func:`schur_solve_fused` (K2) — the float32-preconditioned Schur solve
   with ``nrefine`` passes of float64 residual refinement against the float32
-  feature Gram, in one cooperative launch (``csrc/schur_solve_fused.cu``);
+  feature Gram, one thread-block cluster per instance
+  (``csrc/schur_solve_fused.cu``);
 * :func:`recover_bucket` (K3) — ``dS = pad (A(dy) + Rp)`` and the
   unsymmetrized ``dX = pad ((Rc - X dS) S^-1)`` (``csrc/recover_bucket.cu``).
 
@@ -33,6 +34,7 @@ launches in ``<wrapper>.launches`` (a plain integer a caller may reset).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,6 +45,110 @@ _F32 = torch.float32
 # the row-panel kernels of K1 and K3 keep two 16-row float64 panels of a
 # block in shared memory: 256 n bytes, at most the 227 KB a block may use
 MAX_N = 900
+# K2 (csrc/schur_solve_fused.cu) runs a thread-block cluster of at most
+# _SCHUR_MAX_CLUSTER blocks per instance (above 8 a non-portable size,
+# allowed on the H100), each block's slice of F at least _SCHUR_MIN_SLICE
+# columns; SMEM_LIMIT is the dynamic shared memory a block may use on sm_90
+# (227 KB); _SCHUR_THREADS is the source's kThreads.  A wave of clusters
+# costs about as much as _SCHUR_WAVE columns more of slice, each block of a
+# cluster _SCHUR_BLOCK, and a streamed slice (read once a pass)
+# _SCHUR_STREAMED times a kept one (fitted to the kernel's times over
+# cluster sizes on an H100, profile_torch_kernels.py variants schur)
+_SCHUR_MAX_CLUSTER = 16
+_SCHUR_MIN_SLICE = 32
+_SCHUR_THREADS = 1024
+_SCHUR_WAVE = 2000
+_SCHUR_BLOCK = 15
+_SCHUR_STREAMED = 3.5
+SMEM_LIMIT = 232448
+
+
+def schur_smem(mp: int, chunk: int, resident: bool) -> int:
+    """Shared-memory bytes of a block of :func:`schur_solve_fused`'s kernel
+    (the source's ``smem_bytes``): the W buffer(s) of mp rows x ``chunk``
+    float32 (two when the slice is streamed), Minv (mp x mp float32,
+    padded to a multiple of 4) with a kept slice, rhs, dsc, diag, reg, vf,
+    u twice and dy (mp float64 each), wt (max(chunk, 2 _SCHUR_THREADS)
+    float64), v32 (mp float32) and fix (mp bytes, padded to a multiple of
+    4)."""
+    minv = -(-mp * mp // 4) * 4 if resident else 0
+    return (((1 if resident else 2) * mp * chunk + minv) * 4
+            + (8 * mp + max(chunk, 2 * _SCHUR_THREADS)) * 8 + mp * 4
+            + -(-mp // 4) * 4)
+
+
+def _quarter_up(x: int, parts: int) -> int:
+    """ceil(x / parts) rounded up to a multiple of 4, at least 4."""
+    return max(4, -(-(-(-x // parts)) // 4) * 4)
+
+
+def schur_split(mp: int, F: int, C: int,
+                smem_limit: int = SMEM_LIMIT) -> tuple | None:
+    """(C, slice, chunk) for a cluster of C blocks: F cut into C slices of
+    ``slice`` columns (a multiple of 4, the last one shorter or empty),
+    each kept whole in a block's shared memory where it fits (chunk ==
+    slice), else streamed in the fewest equal chunks (multiples of 4) that
+    two buffers hold; None where not even a 4-column chunk fits."""
+    width = _quarter_up(F, C)
+    if schur_smem(mp, width, True) <= smem_limit:
+        return C, width, width
+    widest = (smem_limit - schur_smem(mp, 0, False)) // (2 * mp * 4) + 4
+    widest -= widest % 4
+    while widest >= 4 and schur_smem(mp, widest, False) > smem_limit:
+        widest -= 4
+    if widest < 4:
+        return None
+    return C, width, _quarter_up(width, -(-width // widest))
+
+
+def schur_plan(B: int, mp: int, F: int, held=None,
+               smem_limit: int = SMEM_LIMIT) -> tuple:
+    """(C, slice, chunk) of :func:`schur_solve_fused`'s kernel for B
+    instances of W (mp, F).  The kernel is bound by each block's chain of
+    dependent steps: a fixed part a wave of clusters, a part that grows
+    with the cluster's blocks and one that grows with the slice, so the
+    plan takes the cluster size C (1 to _SCHUR_MAX_CLUSTER, slices of at
+    least _SCHUR_MIN_SLICE columns) with the least waves x (_SCHUR_WAVE +
+    _SCHUR_BLOCK C + slice), a streamed slice counting _SCHUR_STREAMED
+    times; ``held(plan)`` is the number of clusters the
+    card holds at once (the occupancy query; without it, all B), and
+    waves = ceil(B / held).  Ties go to the smaller C.  Raises where no
+    plan fits."""
+    best, best_cost = None, None
+    for C in range(1, _SCHUR_MAX_CLUSTER + 1):
+        if C > 1 and -(-F // C) < _SCHUR_MIN_SLICE:
+            break
+        plan = schur_split(mp, F, C, smem_limit)
+        if plan is None:
+            continue
+        at_once = held(plan) if held is not None else B
+        if at_once < 1:
+            continue
+        cost = -(-B // at_once) * (_SCHUR_WAVE + _SCHUR_BLOCK * C + plan[1] * (
+            1 if plan[2] == plan[1] else _SCHUR_STREAMED))
+        if best is None or cost < best_cost:
+            best, best_cost = plan, cost
+    if best is None:
+        raise ValueError(f"schur_solve_fused: no cluster plan for mp = {mp}, "
+                         f"F = {F} in {smem_limit} bytes of shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _device_plan(device_index: int, B: int, mp: int, F: int) -> tuple:
+    """schur_plan on CUDA device ``device_index``, with the card's count of
+    clusters held at once (the kernel library's occupancy query)."""
+    query = _build.load("schur_solve_fused").schur_solve_fused_clusters
+    query.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    query.restype = ctypes.c_int
+
+    def held(plan):
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device_index):
+            err = query(mp, F, *plan, ctypes.byref(n))
+        return n.value if err == 0 else 0
+
+    return schur_plan(B, mp, F, held)
 
 
 def rhs_bucket_plain(A: torch.Tensor, Rc: torch.Tensor, XRp: torch.Tensor,
@@ -88,7 +194,7 @@ def recover_bucket_plain(A: torch.Tensor, dy: torch.Tensor, Rp: torch.Tensor,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {   # of each C entry point <name>_f64, the stream last
     "rhs_bucket": (_P,) * 6 + (_I,) * 4 + (_P,),
-    "schur_solve_fused": (_P,) * 10 + (_I,) * 4 + (_P,),
+    "schur_solve_fused": (_P,) * 8 + (_I,) * 7 + (_P,),
     "recover_bucket": (_P,) * 7 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
 }
 
@@ -174,7 +280,9 @@ def schur_solve_fused(Wall32: torch.Tensor, rhs: torch.Tensor,
 
     Wall32 (B, mp, F) and Minv32 (B, mp, mp) float32; rhs, dsc, diag, reg
     (B, mp) float64; fix (B, mp) bool.  Returns ``live dy`` (B, mp) float64.
-    CUDA: ``csrc/schur_solve_fused.cu``, one cooperative launch."""
+    CUDA: ``csrc/schur_solve_fused.cu``, a thread-block cluster per
+    instance in :func:`schur_plan`'s split of F (for the card's count of
+    clusters held at once)."""
     if _on_cpu("schur_solve_fused", Wall32, rhs, Minv32, dsc, diag, reg,
                fix):
         return schur_solve_fused_plain(Wall32, rhs, Minv32, dsc, diag, reg,
@@ -195,13 +303,13 @@ def schur_solve_fused(Wall32: torch.Tensor, rhs: torch.Tensor,
     if dy.numel() == 0:
         return dy
     _int32(name, Wall32, Minv32)
-    wt = torch.empty((B, F), dtype=_F64, device=rhs.device)    # W^T vf
-    v32 = torch.empty((B, mp), dtype=_F32, device=rhs.device)  # f32(dsc r)
+    if B >= 2**16:
+        raise ValueError(f"{name}: {B} instances exceed one grid")
     _build.launch(name, _ARGTYPES[name], rhs.device, Wall32.data_ptr(),
                   rhs.data_ptr(), Minv32.data_ptr(), dsc.data_ptr(),
                   diag.data_ptr(), reg.data_ptr(), fix.data_ptr(),
-                  wt.data_ptr(), v32.data_ptr(), dy.data_ptr(), B, mp, F,
-                  max(int(nrefine), 0))
+                  dy.data_ptr(), B, mp, F, max(int(nrefine), 0),
+                  *_device_plan(dy.device.index, B, mp, F))
     schur_solve_fused.launches += 1
     return dy
 

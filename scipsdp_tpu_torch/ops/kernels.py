@@ -32,7 +32,7 @@ from scipsdp_tpu_torch.ops.eigen import cholesky as cholesky_plain
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {   # of each C entry point <name>_f32, the stream last
     "cholesky_lanes": (_P, _P, _LL, _I, _I, _P),
-    "cholesky": (_P, _P, _LL, _I, _P),
+    "cholesky": (_P, _P, _LL, _I, _I, _P),
     "tril_inverse": (_P, _P, _LL, _I, _I, _P),
     "chol_inverse_lanes": (_P, _P, _P, _LL, _I, _P),
     "schur_wwt": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
@@ -47,16 +47,17 @@ _GRAM_PANEL = 80
 _GRAM_SLAB = 32
 _GRAM_BLOCKS = 1056
 _GRAM_MIN_CHUNK = 128
-# Blocked triangular kernels (csrc/cholesky_lanes.cu, csrc/tril_inverse.cu):
-# columns in blocks of _TRI_NB, the Cholesky's panels and the triangular
-# inverse's block columns (one thread block per matrix and block column);
-# the sources' kNB, which their C entry points check the block count against
+# Blocked triangular kernels (csrc/cholesky_lanes.cu, csrc/cholesky.cu,
+# csrc/tril_inverse.cu): columns in blocks of _TRI_NB, the Cholesky
+# factors' panels and the triangular inverse's block columns (one thread
+# block per matrix and block column); the sources' kNB, which their C entry
+# points check the block count against
 _TRI_NB = 16
 
 
 def tri_blocks(n: int) -> tuple:
-    """(nb, nblk) of :func:`cholesky_lanes`'s panels and
-    :func:`tril_inverse`'s block columns for matrices of size n: blocks of
+    """(nb, nblk) of :func:`cholesky_lanes`'s and :func:`cholesky`'s panels
+    and :func:`tril_inverse`'s block columns for matrices of size n: blocks of
     nb columns, the last one non-empty, together covering n.  The kernels
     take nblk; nb is fixed in their sources."""
     return _TRI_NB, max(1, -(-n // _TRI_NB))
@@ -159,13 +160,15 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
     that is not positive definite comes back NaN on and below its diagonal
     and touches no other matrix.
 
-    CUDA: ``csrc/cholesky.cu``.  CPU: :func:`cholesky_plain`
-    (``eigen.cholesky``, which symmetrizes first: the two agree on
-    symmetric input).
+    CUDA: ``csrc/cholesky.cu``, blocked right-looking in panels of
+    :func:`tri_blocks`' nb columns with IEEE square roots and divisions,
+    one thread block per matrix (one group of nb lanes for n <= nb).  CPU:
+    :func:`cholesky_plain` (``eigen.cholesky``, which symmetrizes first:
+    the two agree on symmetric input).
     """
     if _on_cpu("cholesky", A):
         return cholesky_plain(A)
-    return _per_matrix(cholesky, A)
+    return _per_matrix(cholesky, A, blocked=True)
 
 
 def tril_inverse(L: torch.Tensor) -> torch.Tensor:

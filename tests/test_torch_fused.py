@@ -11,11 +11,14 @@ K2 atol 1e-10 max|ref| against the exact solve of the live subsystem; K3
 those inputs (B=4, K=2, n=13, mp=9, F=37) each kernel runs at the main
 path's block shape (K=1, n=65, mp=66, F=4290: cardinality_least_squares(32,
 64, 8)), K3 with a zeroed padding (blocks of two sizes in one bucket) and K2
-with several fixed rows.
+with several fixed rows; K2's split of F across a thread-block cluster is
+emulated in numpy and held to the JAX math too.
 
 The CUDA kernels run only on the card: ``python3 chip_smoke.py`` holds each
 against the same plain version there.
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -129,6 +132,116 @@ def test_schur_solve_fused_matches_jax_math(shape, nfix):
     np.testing.assert_allclose(got, want, rtol=0, atol=atol)
     np.testing.assert_allclose(jax_got, want, rtol=0, atol=atol)
     assert (got[fix] == 0.0).all()
+
+
+def _schur_cluster(W, rhs, Minv, dsc, diag, reg, fix, nrefine, plan):
+    """numpy emulation of csrc/schur_solve_fused.cu's summation order under
+    ``plan`` = (C, slice, chunk): u = W (W^T vf) as C slice partials, each
+    the sum of its chunks' W_c (W_c^T vf) in order, the partials added in
+    rank order; the preconditioner's product summed in float64 and rounded
+    to float32, as the kernel takes it."""
+    B, mp, F = W.shape
+    C, width, chunk = plan
+    W64 = W.astype(np.float64)
+    M64 = Minv.astype(np.float64)
+
+    def precond(r):
+        v = (dsc * r).astype(np.float32).astype(np.float64)
+        return dsc * np.einsum("bij,bj->bi", M64, v).astype(
+            np.float32).astype(np.float64)
+
+    rhsf = np.where(fix, 0.0, rhs)
+    dy = precond(rhsf)
+    for _ in range(nrefine):
+        vf = np.where(fix, 0.0, dy)
+        u = None
+        for rank in range(C):
+            end = min(F, (rank + 1) * width)
+            part = np.zeros((B, mp))
+            for c0 in range(rank * width, end, chunk):
+                cols = slice(c0, min(end, c0 + chunk))
+                wt = np.einsum("bif,bi->bf", W64[:, :, cols], vf)
+                part = part + np.einsum("bif,bf->bi", W64[:, :, cols], wt)
+            u = part if u is None else u + part
+        r = np.where(fix, 0.0, rhs - ((u + diag * vf) + reg * vf))
+        dy = dy + precond(r)
+    return np.where(fix, 0.0, dy)
+
+
+# the main path's block shape under two plans the kernel takes: clusters of
+# 8 blocks, each slice kept in shared memory, and clusters of 4, slices of
+# 1,076 columns streamed in chunks of 212; neither C divides F
+@pytest.mark.parametrize("plan", ["kept", "streamed"])
+@pytest.mark.parametrize("nrefine", [0, 1, 3])
+def test_schur_cluster_split_matches_jax_math(nrefine, plan):
+    """The CUDA kernel's split of F across a cluster, emulated, against
+    the JAX kernel math and the exact solve, with five fixed rows: within
+    1e-10 max|ref| after one refinement pass or more; with none (nrefine =
+    0: the float32 preconditioner alone, whose product both round to
+    float32 in their own order) within 1e-6 max|ref|.  Fixed rows are 0."""
+    B, _, _, mp, F = SHAPES["main_block"]
+    W, rhs, Minv, dsc, diag, reg, fix, want = _schur_inputs(B, mp, F, 5,
+                                                            seed=7)
+    split = {"kept": (8, 540, 540), "streamed": (4, 1076, 212)}[plan]
+    assert split == fused.schur_split(mp, F, split[0]) or plan == "streamed"
+    got = _schur_cluster(W, rhs, Minv, dsc, diag, reg, fix, nrefine, split)
+    jax_got = join64(*_run(
+        jfused._schur_math, nrefine, jnp.asarray(W), *split64(rhs),
+        jnp.asarray(Minv), *split64(dsc), *split64(diag), *split64(reg),
+        jnp.asarray(fix.astype(np.float32))))
+    bar = 1e-10 if nrefine else 1e-6
+    np.testing.assert_allclose(got, jax_got, rtol=0,
+                               atol=bar * np.abs(jax_got).max())
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=bar * np.abs(want).max())
+    assert (got[fix] == 0.0).all()
+
+
+def _held(plan):
+    """A stand-in for the card's occupancy query: the clusters of a plan
+    that 132 SMs hold at once, two blocks an SM (one if its shared memory
+    exceeds half the limit), clusters not spread over its 8 GPCs of 16."""
+    C, width, chunk = plan
+    per_sm = 1 if 2 * fused.schur_smem(66, chunk, chunk == width) > (
+        fused.SMEM_LIMIT) else 2
+    return min(132 * per_sm // C, 8 * (16 * per_sm // C))
+
+
+# chip_smoke.py's FUSED_SHAPES (B, mp, F) and F that the cluster size does
+# not divide, odd and even
+@pytest.mark.parametrize("B,mp,F", [(32, 66, 4290), (8, 130, 16770),
+                                    (32, 46, 101), (4, 9, 37), (8, 30, 420),
+                                    (8, 40, 700), (4, 66, 4097),
+                                    (3, 130, 4099), (1, 1, 1)])
+@pytest.mark.parametrize("held", [None, _held])
+def test_schur_plan_covers_f_and_fits(B, mp, F, held):
+    """The Schur solve's plan: C slices of a multiple of 4 columns cover F,
+    every slice but the last whole; chunks of a multiple of 4 columns cover
+    a slice; one block's shared memory holds it; slices of at least 32
+    columns for a cluster of more than one block; with the card's count
+    of clusters held at once or without it."""
+    C, width, chunk = fused.schur_plan(B, mp, F, held)
+    assert 1 <= C <= 16 and (C == 1 or -(-F // C) >= 32)
+    assert width % 4 == 0 and chunk % 4 == 0 and 4 <= chunk <= width
+    assert (C - 1) * width < F <= C * width
+    assert -(-width // chunk) * chunk >= width
+    assert fused.schur_smem(mp, chunk, chunk == width) <= fused.SMEM_LIMIT
+    assert (C, width, chunk) == fused.schur_split(mp, F, C)
+    if (mp, F) == (130, 16770):     # cls_64: too wide to keep, streamed
+        assert chunk < width
+    if held is None and (B, mp, F) == (32, 66, 4290):   # the main path
+        assert chunk == width and C > 1
+
+
+def test_schur_plan_constants_are_the_source_s():
+    """The plan's thread count and largest cluster are the kernel source's
+    kThreads and kMaxCluster (its shared memory holds max(chunk, kThreads)
+    float64 of wt, and it refuses larger clusters)."""
+    src = (_build.CSRC / "schur_solve_fused.cu").read_text()
+    for name, value in (("kThreads", fused._SCHUR_THREADS),
+                        ("kMaxCluster", fused._SCHUR_MAX_CLUSTER)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
+            str(value)], name
 
 
 def _recover_inputs(B, K, n, mp, seed, padded):

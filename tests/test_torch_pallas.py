@@ -353,6 +353,106 @@ def test_tril_inverse_blocked_arithmetic_meets_the_bar(case):
         assert np.abs(X - other).max() / scale < 1e-4
 
 
+def _chol_panels(A):
+    """numpy emulation of csrc/cholesky.cu in float32 at
+    ``kernels.tri_blocks``' split: the stack padded to whole panels of nb
+    with an identity tail; per panel (a) the diagonal block column by
+    column (d = sqrt(c), IEEE; l = a / d, IEEE division; fmaf updates
+    inside the block), (b) the rows below by forward substitution against
+    it (fmaf chain in column order, then an IEEE division by the pivot),
+    (c) the trailing part fmaf-updated with the panel's columns in order,
+    a panel's column at a time over the whole trailing part.  A matrix
+    with a pivot that is not > 0 comes back NaN on and below its
+    diagonal.  Only the lower triangle of A is read."""
+    N, n, _ = A.shape
+    nb, npan = kernels.tri_blocks(n)
+    npd = nb * npan
+    W = np.zeros((N, npd, npd), np.float32)
+    W[:, :n, :n] = np.tril(A)
+    W[:, np.arange(n, npd), np.arange(n, npd)] = 1.0
+    ok = np.ones(N, bool)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for k0 in range(0, npd, nb):
+            k1 = k0 + nb
+            for q in range(k0, k1):                       # (a)
+                ok &= W[:, q, q] > 0
+                d = np.sqrt(W[:, q, q])
+                W[:, q, q] = d
+                W[:, q + 1:k1, q] /= d[:, None]
+                lq = W[:, q + 1:k1, q]
+                W[:, q + 1:k1, q + 1:k1] = _fma32(
+                    -lq[:, :, None], lq[:, None, :], W[:, q + 1:k1, q + 1:k1])
+            Lpp = W[:, k0:k1, k0:k1]
+            rows = W[:, k1:, k0:k1].copy()                # (b)
+            for q in range(nb):
+                s = rows[:, :, q]
+                for t in range(q):
+                    s = _fma32(-rows[:, :, t], Lpp[:, q, t][:, None], s)
+                rows[:, :, q] = s / Lpp[:, q, q][:, None]
+            W[:, k1:, k0:k1] = rows
+            for k in range(nb):                           # (c)
+                p = rows[:, :, k]
+                W[:, k1:, k1:] = _fma32(-p[:, :, None], p[:, None, :],
+                                        W[:, k1:, k1:])
+    L = np.tril(W[:, :n, :n])
+    lower = np.tri(n, dtype=bool)
+    return np.where(ok[:, None, None], L, np.where(lower, np.float32(np.nan),
+                                                   np.float32(0)))
+
+
+def _chol_columns_ieee(A):
+    """The same arithmetic one column at a time (right-looking, unblocked,
+    no NaN flag): what the panels must reproduce bit for bit."""
+    W = np.tril(A).astype(np.float32)
+    n = A.shape[-1]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for k in range(n):
+            d = np.sqrt(W[:, k, k])
+            W[:, k, k] = d
+            lk = W[:, k + 1:, k] / d[:, None]
+            W[:, k + 1:, k] = lk
+            W[:, k + 1:, k + 1:] = _fma32(-lk[:, :, None], lk[:, None, :],
+                                          W[:, k + 1:, k + 1:])
+    return np.tril(W)
+
+
+@pytest.mark.parametrize("case", ["n=10", "n=16", "n=17", "n=65", "n=66",
+                                  "n=129", "n=130", "n=300", "not PD"])
+def test_cholesky_panel_arithmetic_meets_the_bar(case):
+    """The factor-quality CUDA Cholesky's arithmetic (panels of tri_blocks'
+    nb, IEEE square roots and divisions), emulated in float32: equal bit
+    for bit to the unblocked column order, and within tests/test_pallas.py's
+    bar (1e-4 max|L|) of float64 numpy, of the JAX kernel in interpret
+    mode and of the plain version, on ragged n and on both sides of the
+    panel width.  A matrix that is not positive definite in a stack comes
+    back NaN on and below its diagonal, zeros above, and leaves the
+    others' bits alone."""
+    rng = np.random.default_rng(10)
+    n = 65 if case == "not PD" else int(case[2:])
+    N = 2 if n == 300 else 3
+    A = _spd(rng, N, n)
+    E = _chol_panels(A)
+    np.testing.assert_array_equal(E, _chol_columns_ieee(A))
+    if case == "not PD":
+        bad = A.copy()
+        bad[1] -= np.float32(4 * n) * np.eye(n, dtype=np.float32)
+        Eb = _chol_panels(bad)
+        ref = np.asarray(jpk.cholesky(jnp.asarray(bad), interpret=True))
+        lower = np.tri(n, dtype=bool)
+        assert np.isnan(Eb[1][lower]).all() and (Eb[1][~lower] == 0).all()
+        np.testing.assert_array_equal(Eb[[0, 2]], E[[0, 2]])
+        assert np.isnan(ref[1]).any()
+        assert np.isfinite(ref[[0, 2]]).all() and np.isfinite(Eb[[0, 2]]).all()
+        return
+    assert (np.triu(E, 1) == 0).all() and np.isfinite(E).all()
+    exact = np.linalg.cholesky(A.astype(np.float64))
+    ref = np.asarray(jpk.cholesky(jnp.asarray(A), interpret=True))
+    plain = kernels.cholesky_plain(torch.as_tensor(A)).numpy()
+    scale = np.abs(exact).max()
+    for other in (exact, ref, plain):
+        assert np.abs(E - other).max() / scale < 1e-4
+
+
 # tests/test_lanes_chol.py's and the solver's n, around the block width
 @pytest.mark.parametrize("n", [1, 5, 10, 15, 16, 17, 32, 33, 43, 46, 65, 66,
                                129, 130, 300])
@@ -370,10 +470,10 @@ def test_tri_blocks_cover_n(n):
 
 
 def test_tri_block_width_one_source_constant():
-    """tri_blocks' nb is the block width fixed in both blocked sources
+    """tri_blocks' nb is the block width fixed in the three blocked sources
     (their only one), and their C entry points take the block count
     alone."""
-    for name in ("cholesky_lanes", "tril_inverse"):
+    for name in ("cholesky_lanes", "cholesky", "tril_inverse"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert re.findall(r"constexpr int kNB = (\d+);", src) == [
             str(kernels.tri_blocks(1)[0])], name
