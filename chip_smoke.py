@@ -35,7 +35,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    tests/test_fused.py's and an odd F with one instance's rows all fixed,
    against their plain versions and against
    float64 numpy references (the exact solve of the live subsystem for
-   the Schur solve) at tests/test_fused.py's bars (FUSED_BARS);
+   the Schur solve) at tests/test_fused.py's bars (FUSED_BARS), two
+   launches bit for bit; ``rhs_bucket`` and ``recover_bucket`` also at
+   BUCKET_EDGES (n = 16 ... 145 around their kernels' shape choices, 33
+   instances, a per-instance pad), checked only;
    ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
    at the float32 tiers' shapes for cls_32 B=32, cls_64 B=8 and mkp_10
    B=32, at tests/test_pallas.py's and tests/test_lanes_chol.py's shapes,
@@ -238,6 +241,24 @@ FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False, False),
                 ("F=700", 8, 1, 26, 40, 700, False, False),
                 ("F=4097 instance 0 fixed", 4, 1, 20, 66, 4097, False, True)]
 FUSED_MAIN = "cls_32 B=32"
+# rhs_bucket's and recover_bucket's edge cases, checked and not timed:
+# (label, B, K, n, mp, pad) around their kernels' shape choices (the
+# staged tensor-core panels up to n = 144 in 16-row panels of 8-column
+# fragments, k padded to 16; the row panels above), the contraction's
+# 32-row passes (B = 33) and a per-instance (B, K, n, n) pad
+# ("instance": each instance zeroes its own trailing rows and columns of
+# its last block; "shared": one (1, K, n, n) pad, the last block 3 smaller)
+BUCKET_EDGES = [("edge n=16", 3, 2, 16, 9, "shared"),
+                ("edge n=17", 3, 2, 17, 11, "none"),
+                ("edge n=64", 2, 2, 64, 20, "shared"),
+                ("edge n=65 per-instance pad", 3, 2, 65, 66, "instance"),
+                ("edge n=72", 2, 2, 72, 17, "none"),
+                ("edge n=73", 2, 2, 73, 25, "instance"),
+                ("edge n=129", 2, 2, 129, 30, "shared"),
+                ("edge n=143", 2, 2, 143, 9, "none"),
+                ("edge n=145", 2, 2, 145, 9, "instance"),
+                ("edge B=33 n=13", 33, 2, 13, 40, "instance"),
+                ("edge B=33 n=33", 33, 2, 33, 19, "shared")]
 NREFINE = 3          # the settings' schur_refine
 # tests/test_fused.py's bars, each times max(floor, max |reference|), for
 # the kernel against its plain version and against the numpy reference
@@ -628,6 +649,58 @@ def _sym(a):
     return 0.5 * (a + np.swapaxes(a, -1, -2))
 
 
+def rhs_reference(A, Rc, XRp, Sinv):
+    """float64 numpy reference of rhs_bucket."""
+    P = np.einsum("zkac,zkcd->zkad", Rc - XRp, Sinv.astype(np.float64))
+    return np.einsum("kjpq,zkqp->zj", A, P)
+
+
+def recover_reference(A, dy, Rp, Rc, X, Sinv, pad):
+    """float64 numpy references (dS, dX) of recover_bucket."""
+    dS = np.where(pad, np.einsum("kjpq,zj->zkpq", A, dy) + Rp, 0.0)
+    dX = np.where(pad, np.einsum(
+        "zkac,zkcd->zkad", Rc - np.einsum("zkac,zkcd->zkad", X, dS),
+        Sinv.astype(np.float64)), 0.0)
+    return dS, dX
+
+
+def bucket_edge_cases(device, edges=BUCKET_EDGES) -> dict:
+    """label -> {kernel: (args, numpy references)} of rhs_bucket and
+    recover_bucket at ``edges`` (BUCKET_EDGES' form), with fused_cases'
+    input scales."""
+    rng = np.random.default_rng(3)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    cases = {}
+    for label, B, K, n, mp, kind in edges:
+        A = _sym(rng.standard_normal((K, mp, n, n)))
+        Rc = rng.standard_normal((B, K, n, n)) * 1e-6
+        XRp = rng.standard_normal((B, K, n, n)) * 1e-6
+        Sinv = _sym(rng.standard_normal((B, K, n, n))).astype(np.float32)
+        dy = rng.standard_normal((B, mp)) * 1e-3
+        Rp = rng.standard_normal((B, K, n, n)) * 1e-7
+        X = _sym(rng.standard_normal((B, K, n, n)))
+        pad = np.ones((1, K, n, n), bool)
+        if kind == "shared":
+            act = np.arange(n) < n - 3
+            pad[0, -1] = act[:, None] & act[None, :]
+        elif kind == "instance":
+            pad = np.ones((B, K, n, n), bool)
+            for b in range(B):
+                act = np.arange(n) < n - 1 - b % 4
+                pad[b, -1] = act[:, None] & act[None, :]
+        cases[label] = {
+            "rhs_bucket": ((t(A), t(Rc), t(XRp), t(Sinv)),
+                           (rhs_reference(A, Rc, XRp, Sinv),)),
+            "recover_bucket": ((t(A), t(dy), t(Rp), t(Rc), t(X), t(Sinv),
+                                t(pad)),
+                               recover_reference(A, dy, Rp, Rc, X, Sinv,
+                                                 pad))}
+    return cases
+
+
 def fused_cases(device):
     """(label, {kernel: (args, numpy reference)}) at FUSED_SHAPES, with
     tests/test_fused.py's input scales: corrector-scale Rc and X Rp,
@@ -646,8 +719,7 @@ def fused_cases(device):
         Rc = rng.standard_normal((B, K, n, n)) * 1e-6
         XRp = rng.standard_normal((B, K, n, n)) * 1e-6
         Sinv = _sym(rng.standard_normal((B, K, n, n))).astype(np.float32)
-        P = np.einsum("zkac,zkcd->zkad", Rc - XRp, Sinv.astype(np.float64))
-        rhs_ref = np.einsum("kjpq,zkqp->zj", A, P)
+        rhs_ref = rhs_reference(A, Rc, XRp, Sinv)
 
         W = rng.standard_normal((B, mp, F)).astype(np.float32)
         diag = np.abs(rng.standard_normal((B, mp))) * 1e3
@@ -677,10 +749,7 @@ def fused_cases(device):
         if padded:      # a smaller last block in the bucket
             act = np.arange(n) < n - 3
             pad[0, -1] = act[:, None] & act[None, :]
-        dS = np.where(pad, np.einsum("kjpq,zj->zkpq", A, dy) + Rp, 0.0)
-        dX = np.where(pad, np.einsum(
-            "zkac,zkcd->zkad", Rc - np.einsum("zkac,zkcd->zkad", X, dS),
-            Sinv.astype(np.float64)), 0.0)
+        dS, dX = recover_reference(A, dy, Rp, Rc, X, Sinv, pad)
         cases.append((label, {
             "rhs_bucket": ((t(A), t(Rc), t(XRp), t(Sinv)), (rhs_ref,)),
             "schur_solve_fused": ((t(W), t(rhs), t(Minv), t(dsc), t(diag),
@@ -691,47 +760,62 @@ def fused_cases(device):
     return cases
 
 
+def fused_check(name, label, args, refs) -> tuple:
+    """Fused kernel ``name`` on ``args`` against its plain version and the
+    numpy references ``refs`` at FUSED_BARS, float64 of the plain
+    version's shape, two launches bit for bit, one launch counted a call;
+    returns the largest errors from the plain version and from numpy."""
+    wrapper = KERNELS[name][0]
+    before = wrapper.launches
+    got = wrapper(*args)
+    want = PLAIN[name](*args)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{name}: no launch counted at {label}")
+    if name != "recover_bucket":
+        got, want = (got,), (want,)
+    again = wrapper(*args)
+    again = again if name == "recover_bucket" else (again,)
+    err = err_ref = 0.0
+    for g, w, g2, ref, (bar, floor) in zip(got, want, again, refs,
+                                           FUSED_BARS[name]):
+        if g.dtype != torch.float64 or g.shape != w.shape:
+            raise AssertionError(f"{name} {label}: {g.dtype} "
+                                 f"{tuple(g.shape)} vs {tuple(w.shape)}")
+        if not bool((g == g2).all()):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        gn = g.cpu().numpy()
+        e = float((g - w).abs().max())
+        er = float(np.abs(gn - ref).max())
+        for what, x, scale in (
+                ("plain version", e, float(w.abs().max())),
+                ("numpy reference", er, float(np.abs(ref).max()))):
+            if not x <= bar * max(floor, scale):
+                raise AssertionError(
+                    f"{name} {label}: {x} from the {what}, bar "
+                    f"{bar} * max({floor}, {scale})")
+        err, err_ref = max(err, e), max(err_ref, er)
+    return err, err_ref
+
+
 def fused_kernel_phase(device) -> dict:
     """Check and time the three fused kernels against their plain versions
     and the numpy references (each chains several products over mixed
-    float32 and float64 operands: no one library call computes it);
-    returns the main-path entry of each."""
+    float32 and float64 operands: no one library call computes it), and
+    check rhs_bucket and recover_bucket at BUCKET_EDGES; returns the
+    main-path entry of each."""
     out = {}
+    for label, per_kernel in bucket_edge_cases(device).items():
+        for name, (args, refs) in per_kernel.items():
+            err, err_ref = fused_check(name, label, args, refs)
+            log("kernel_edge", name=name, shape=label,
+                args=[list(a.shape) for a in args], max_abs_err=err,
+                max_abs_err_vs_numpy=err_ref, repeat_same=True)
     for label, per_kernel in fused_cases(device):
         for name in FUSED:
             args, refs = per_kernel[name]
             wrapper = KERNELS[name][0]
-            before = wrapper.launches
-            got = wrapper(*args)
-            want = PLAIN[name](*args)
-            torch.cuda.synchronize()
-            if wrapper.launches != before + 1:
-                raise AssertionError(f"{name}: no launch counted at {label}")
-            if name != "recover_bucket":
-                got, want = (got,), (want,)
-            again = wrapper(*args)
-            again = again if name == "recover_bucket" else (again,)
-            err = err_ref = 0.0
-            for g, w, g2, ref, (bar, floor) in zip(got, want, again, refs,
-                                                   FUSED_BARS[name]):
-                if g.dtype != torch.float64 or g.shape != w.shape:
-                    raise AssertionError(f"{name} {label}: {g.dtype} "
-                                         f"{tuple(g.shape)} vs "
-                                         f"{tuple(w.shape)}")
-                if not bool((g == g2).all()):
-                    raise AssertionError(f"{name} {label}: two launches "
-                                         "differ")
-                gn = g.cpu().numpy()
-                e = float((g - w).abs().max())
-                er = float(np.abs(gn - ref).max())
-                for what, x, scale in (
-                        ("plain version", e, float(w.abs().max())),
-                        ("numpy reference", er, float(np.abs(ref).max()))):
-                    if not x <= bar * max(floor, scale):
-                        raise AssertionError(
-                            f"{name} {label}: {x} from the {what}, bar "
-                            f"{bar} * max({floor}, {scale})")
-                err, err_ref = max(err, e), max(err_ref, er)
+            err, err_ref = fused_check(name, label, args, refs)
             t, tp = graph_times([wrapper, PLAIN[name]], args)
             te, tpe = eager_times([wrapper, PLAIN[name]], args)
             log("kernel", name=name, shape=label,
@@ -745,7 +829,7 @@ def fused_kernel_phase(device) -> dict:
                              "max_abs_err_vs_numpy": err_ref, "ms": t,
                              "plain_ms": tp, "eager_ms": te,
                              "plain_eager_ms": tpe, "library_ms": None,
-                             **kernel_bound(name, args, got)}
+                             **kernel_bound(name, args, wrapper(*args))}
     return out
 
 

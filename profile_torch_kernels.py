@@ -2,8 +2,10 @@
 """Check and tune the redesigned kernels of the PyTorch/CUDA port on one
 CUDA card: the tensor-core kernels ``bmm64`` (float64 DMMA) and
 ``schur_wwt`` (3xTF32), the blocked triangular kernels ``cholesky_lanes``
-and ``tril_inverse``, the panel-blocked factor-quality ``cholesky`` and
-the fused Schur solve ``schur_solve_fused`` (a cluster an instance).
+and ``tril_inverse``, the panel-blocked factor-quality ``cholesky``, the
+fused Schur solve ``schur_solve_fused`` (a cluster an instance) and the
+fused direction's staged float64 tensor-core ``rhs_bucket`` and
+``recover_bucket``.
 
     python3 profile_torch_kernels.py check [GROUP]     # build, ptxas, errors
     python3 profile_torch_kernels.py variants [GROUP]  # time design variants
@@ -13,8 +15,9 @@ the fused Schur solve ``schur_solve_fused`` (a cluster an instance).
 
 GROUP takes one group of kernels: ``mma`` the tensor-core kernels, ``tri``
 the two blocked triangular ones, ``chol`` the factor-quality Cholesky,
-``schur`` the fused Schur solve (default all; ``phases`` without a group
-runs chip_smoke.py's df32 and float32 kernel phases).
+``schur`` the fused Schur solve, ``bucket`` rhs_bucket and recover_bucket
+(default all; ``phases`` without a group runs chip_smoke.py's df32 and
+float32 kernel phases).
 ``check`` builds the sources, prints the compiler's report, and holds
 each kernel against its plain version (and float64 numpy) on a few shapes
 around the fragment and block edges (the triangular kernels through
@@ -40,12 +43,19 @@ nrefine 0, 1 and 3, and a W that starts off 16-byte alignment;
 ``variants``: other cluster sizes and chunks through the same entry
 point, and copies with other constants; ``dissect``: the parent
 commit's cooperative kernel or the cluster kernel, whichever the
-checkout holds, with a part cut out).
+checkout holds, with a part cut out).  For ``bucket``: ``check`` holds
+both kernels to their plain versions and numpy at chip_smoke.FUSED_BARS,
+two launches bit for bit, at every chip_smoke.FUSED_SHAPES case and
+chip_smoke.BUCKET_EDGES; ``variants`` times copies with other contraction
+slices and warps a block (BUCKET_VARIANTS); ``dissect`` cuts up the
+parent commit's row-panel kernels or the staged ones, whichever the
+checkout holds (BUCKET_CUTS: each launch, the copies, each product, the
+contraction's loads and tile sums, the stores).
 ``phases`` runs ``chip_smoke.py``'s build and its ``df32_phase`` and
 ``pallas_kernel_phase`` (every shape those time, a few minutes); ``phases
-tri``, ``phases chol`` and ``phases schur`` only the build and the
-group's kernels, plain versions and library calls at the main-path
-shapes, in graphs.  ``reference`` runs chip_smoke.py's small
+tri``, ``phases chol``, ``phases schur`` and ``phases bucket`` only the
+build and the group's kernels, plain versions and library calls (for
+``bucket``: bounds) at the main-path shapes, in graphs.  ``reference`` runs chip_smoke.py's small
 CPU-reference instance through the fused refine route under each cluster
 plan of the Schur solve (iterations against the CPU solve's; every
 call's deviation from the plain version).
@@ -758,6 +768,250 @@ def schur_reference(device) -> None:
             fused._device_plan = keep
 
 
+def via(lib: ctypes.CDLL, wrapper):
+    """``wrapper`` (one of ops/fused.py's) launching the entry point of
+    ``lib``, a built copy of its source, instead of the package's own
+    library: the checkout's wrapper fits its source's C signature."""
+    def entry(name, fn_name, argtypes):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
+    work = getattr(lib, "rhs_bucket_work_doubles", None)
+    if work is not None:    # rhs_bucket's scratch, as the copy counts it
+        work.argtypes = [ctypes.c_int] * 4
+        work.restype = ctypes.c_longlong
+
+    def call(*args):
+        keep = _build._entry, getattr(fused, "_rhs_work", None)
+        _build._entry = entry
+        if work is not None:
+            fused._rhs_work = lambda *shape: int(work(*shape))
+        try:
+            return wrapper(*args)
+        finally:
+            _build._entry = keep[0]
+            if keep[1] is not None:
+                fused._rhs_work = keep[1]
+    return call
+
+
+# the bucket kernels' timed cases: labels of chip_smoke.FUSED_SHAPES
+BUCKET_TIMED = ("cls_32 B=32", "cls_64 B=8", "mkp_10 B=32")
+BUCKET = ("rhs_bucket", "recover_bucket")
+
+
+def _stop(text: str) -> tuple:
+    """An edit that makes the kernel whose signature ends in ``text``
+    return at once."""
+    return (text, text + "  if (blockDim.x > 0) return;\n")
+
+
+# the staged kernels' cuts: each product kernel returns once it has zeroed
+# the contraction's arrival counters; a panel product replaced by a value
+ZERO_AND_STOP = ("  zero_counters(counters, ncounters);\n",
+                 "  zero_counters(counters, ncounters);\n"
+                 "  if (blockDim.x > 0) return;\n", 2)
+FAKE_PRODUCT = ("acc[0][0] = acc[0][1] = acc[0][2] = acc[0][3] = acc[1][0] = "
+                "acc[1][1] = acc[1][2] = acc[1][3] = (double)threadIdx.x;")
+# Parts of rhs_bucket and recover_bucket cut out, for the design the
+# checkout holds: the parent commit's row-panel kernels (a thread a
+# column, operands read from L2 a step at a time) or the staged kernels
+BUCKET_CUTS = {
+    "row-panel": {
+        "rhs_bucket": {
+            "return": (_stop("int panels) {\n"), _stop("int mp, int nn) {\n")),
+            "product launch": (_stop("int panels) {\n"),),
+            "contraction launch": (_stop("int mp, int nn) {\n"),),
+            "staging": (("Rc[g] - XRp[g] : 0.0;", "(double)g : 0.0;"),),
+            "product": (("    for (int m = 0; m < n; ++m) {\n"
+                         "      const double s = (double)S[",
+                         "    for (int m = 0; m < n && n < 0; ++m) {\n"
+                         "      const double s = (double)S["),),
+            "P stores": (("      if (r < rows) P[",
+                          "      if (r < rows && acc[r] == 1.2345) P["),),
+            "contraction": (("for (long long ke = threadIdx.x; ke < KE;",
+                             "for (long long ke = threadIdx.x; ke < KE && "
+                             "KE < 0;"),),
+        },
+        "recover_bucket": {
+            "return": (_stop("int mp, int nn) {\n"), _stop("int panels) {\n")),
+            "A(dy) launch": (_stop("int mp, int nn) {\n"),),
+            "chain launch": (_stop("int panels) {\n"),),
+            "A(dy)": (("  for (int j = 0; j < mp; ++j) {",
+                       "  for (int j = 0; j < mp && mp < 0; ++j) {"),),
+            "X staging": (("Xs[e] = r < rows ? X[off + (size_t)(r0 + r) * n "
+                           "+ (e - r * n)] : 0.0;", "Xs[e] = (double)e;"),),
+            "X dS": (("    for (int m = 0; m < n; ++m) {\n"
+                      "      const double d = dS[",
+                      "    for (int m = 0; m < n && n < 0; ++m) {\n"
+                      "      const double d = dS["),),
+            "T S^-1": (("    for (int m = 0; m < n; ++m) {\n"
+                        "      const double s = (double)S[",
+                        "    for (int m = 0; m < n && n < 0; ++m) {\n"
+                        "      const double s = (double)S["),),
+            "dX stores": (("      dX[off + i] = pd[i] ? acc[r] : 0.0;",
+                           "      if (acc[r] == 1.2345) dX[off + i] = "
+                           "pd[i] ? acc[r] : 0.0;"),),
+        },
+    },
+    "staged": {
+        "rhs_bucket": {
+            "return": (ZERO_AND_STOP, _stop("int spk, int steps) {\n")),
+            "product launch": (ZERO_AND_STOP,),
+            "contraction launch": (_stop("int spk, int steps) {\n"),),
+            "staging": (
+                ("  stage(Ss, ldb, Sinv + off, n, n, kp, up(n, 8));\n", ""),
+                ("rc[c] - xr[c]", "(double)c")),
+            "product": (
+                ("  panel_product(acc, Ds, lda, Ss, ldb, kp, nfrag);",
+                 FAKE_PRODUCT),),
+            "P stores": (
+                ("      if (r >= n) continue;\n      double* p",
+                 "      if (r >= n || acc[f][2 * h] != 1.2345) continue;\n"
+                 "      double* p"),),
+            "contraction loads": (
+                ("b[j] = j_ok && e_ok ? __ldg(arow + e) : 0.0;",
+                 "b[j] = (double)e;"),
+                ("? __ldg(prow[m][h] + e)", "? (double)(e + h)")),
+            "tile sums": (("  if (!last) return;",
+                           "  if (!last || S > 0) return;"),),
+        },
+        "recover_bucket": {
+            "return": (_stop("int mp, int nn, int frags) {\n"),
+                       _stop("                     int n, int panels) {\n")),
+            "A(dy) launch": (_stop("int mp, int nn, int frags) {\n"),),
+            "chain launch": (
+                _stop("                     int n, int panels) {\n"),),
+            "A(dy) loads": (
+                ("bf[i] = e_ok && j_ok ? __ldg(acol + (size_t)j * nn) : 0.0;",
+                 "bf[i] = (double)j;"),
+                ("? __ldg(dyr[m][h] + j) : 0.0;", "? (double)(j + h) : 0.0;")),
+            "X, dS staging": (
+                ("  stage(Ps, lda, X + off + (size_t)r0 * n, n - r0, n, kRows, "
+                 "kp);\n", ""),
+                ("  stage(Bs, ld_b64(n), dS + off, n, n, kp, up(n, 8));\n",
+                 "")),
+            "X dS": (
+                ("  panel_product(acc, Ps, lda, Bs, ld_b64(n), kp, nfrag);",
+                 FAKE_PRODUCT),),
+            "S^-1 staging": (
+                ("  stage(Ss, ld_b32(n), Sinv + off, n, n, kp, up(n, 8));\n",
+                 ""),),
+            "T S^-1": (
+                ("  panel_product(acc, Ps, lda, Ss, ld_b32(n), kp, nfrag);",
+                 FAKE_PRODUCT),),
+            "dX stores": (
+                ("        if (q + c < n) dX[off + i]",
+                 "        if (q + c < n && acc[f][2 * h + c] == 1.2345) "
+                 "dX[off + i]"),),
+        },
+    },
+}
+
+
+def bucket_cases(device, labels=None) -> dict:
+    """label -> {kernel: (args, numpy references)} of rhs_bucket and
+    recover_bucket at chip_smoke.FUSED_SHAPES (all, or those labelled)
+    and, for ``check``, chip_smoke.BUCKET_EDGES."""
+    cases = {label: {k: per_kernel[k] for k in BUCKET}
+             for label, per_kernel in cs.fused_cases(device)
+             if labels is None or label in labels}
+    if labels is None and hasattr(cs, "bucket_edge_cases"):
+        cases.update(cs.bucket_edge_cases(device))
+    return cases
+
+
+def bucket_check(device) -> None:
+    """rhs_bucket and recover_bucket against their plain versions and
+    float64 numpy (chip_smoke.fused_check: FUSED_BARS, two launches bit
+    for bit) at every FUSED_SHAPES case and chip_smoke.BUCKET_EDGES."""
+    ptxas_report(*BUCKET)
+    for label, per_kernel in bucket_cases(device).items():
+        for name, (args, refs) in per_kernel.items():
+            err, err_ref = cs.fused_check(name, label, args, refs)
+            cs.log("check", kernel=name, shape=label,
+                   blocks=list(args[-1].shape) if name == "recover_bucket"
+                   else list(args[1].shape), max_abs_err=err,
+                   max_abs_err_vs_numpy=err_ref, repeat_same=True)
+
+
+def bucket_times(device) -> None:
+    """Each bucket kernel, its plain version and its bound at
+    BUCKET_TIMED, device ms from CUDA graphs (only the wrappers, so that
+    the same lines run in a checkout of an earlier commit)."""
+    for label, per_kernel in bucket_cases(device, BUCKET_TIMED).items():
+        for name, (args, _) in per_kernel.items():
+            wrapper = getattr(fused, name)
+            ms = cs.graph_times([wrapper, getattr(fused, f"{name}_plain")],
+                                args)
+            bound = cs.kernel_bound(name, args, wrapper(*args))
+            cs.log("bucket_times", kernel=name, shape=label, ms=ms[0],
+                   plain_ms=ms[1], **bound,
+                   share_of_bound=bound["bound_ms"] / ms[0])
+
+
+BUCKET_VARIANTS = {   # a substituted constant (key=value) a copy
+    "rhs_bucket": ["kSlicesPerTile=16", "kMinSteps=4", "kCWarps=8"],
+    "recover_bucket": ["kDsWarps=2", "kDsWarps=8"],
+}
+
+
+def bucket_variants(device) -> None:
+    """The committed bucket kernels beside copies with other constants
+    (BUCKET_VARIANTS: the contraction's slices, the warps a block), each
+    held to the plain version, timed in turns
+    with the plain version at BUCKET_TIMED and at n = 16, 17, 32 and 33."""
+    extra = [(f"n={n}", 32, 1, n, 46, "none") for n in (16, 17, 32, 33)]
+    cases = {**bucket_cases(device, BUCKET_TIMED),
+             **cs.bucket_edge_cases(device, extra)}
+    for name, subs in BUCKET_VARIANTS.items():
+        wrapper = getattr(fused, name)
+        fns = {"committed": wrapper}
+        for sub in subs:
+            key, value = sub.split("=")
+            fns[sub] = via(variant(name, key + value, {key: int(value)}),
+                           wrapper)
+        fns["plain"] = getattr(fused, f"{name}_plain")
+        for label, per_kernel in cases.items():
+            args = per_kernel[name][0]
+            want = fns["plain"](*args)
+            want = want if isinstance(want, tuple) else (want,)
+            for k, f in fns.items():
+                got = f(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                for g, w in zip(got, want):
+                    rel = float((g - w).abs().max() / w.abs().max())
+                    if not rel <= 1e-11:
+                        raise AssertionError(f"{name} {k} {label}: {rel}")
+            cs.log("variants", kernel=name, shape=label, ms=dict(zip(
+                fns, cs.graph_times(list(fns.values()), args))))
+
+
+def bucket_dissect(device) -> None:
+    """Each bucket kernel the checkout holds beside copies with parts cut
+    out (BUCKET_CUTS), in turns, at BUCKET_TIMED; also the kernel with
+    both launches made empty."""
+    for name in BUCKET:
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        kind = next(k for k, cuts in BUCKET_CUTS.items() if all(
+            src.count(text) == (count[0] if count else 1)
+            for edits in cuts[name].values()
+            for text, _, *count in edits))
+        libs = {"whole": cut(name, "whole")}
+        for part, edits in BUCKET_CUTS[kind][name].items():
+            key = "empty launches" if part == "return" else f"no {part}"
+            libs[key] = cut(name, re.sub(r"\W+", "_", part), *edits)
+        wrapper = getattr(fused, name)
+        for label, per_kernel in bucket_cases(device, BUCKET_TIMED).items():
+            args = per_kernel[name][0]
+            fns = [via(v, wrapper) for v in libs.values()]
+            fns.append(getattr(fused, f"{name}_plain"))
+            cs.log("dissect", kernel=name, design=kind, shape=label,
+                   ms=dict(zip([*libs, "plain"], cs.graph_times(fns, args))))
+
+
 def check(device) -> None:
     _build.build("bmm64", "schur_wwt")
     for name in ("bmm64", "schur_wwt"):
@@ -912,6 +1166,8 @@ def main() -> int:
             tri_times(device, CHOL_TIMED)
         elif which == "schur":
             schur_times(device)
+        elif which == "bucket":
+            bucket_times(device)
         else:
             cs.df32_phase(device)
             cs.pallas_kernel_phase(device)
@@ -942,6 +1198,13 @@ def main() -> int:
             schur_variants(device)
         if mode == "dissect":
             schur_dissect(device)
+    if which in ("all", "bucket"):
+        if mode != "dissect":   # dissect also runs the parent's kernels
+            bucket_check(device)
+        if mode == "variants":
+            bucket_variants(device)
+        if mode == "dissect":
+            bucket_dissect(device)
     return 0
 
 

@@ -42,8 +42,9 @@ from scipsdp_tpu_torch import _build
 
 _F64 = torch.float64
 _F32 = torch.float32
-# the row-panel kernels of K1 and K3 keep two 16-row float64 panels of a
-# block in shared memory: 256 n bytes, at most the 227 KB a block may use
+# K1 and K3 stage n x n operands in shared memory up to n = 144; above it
+# their row-panel kernels keep two 16-row float64 panels of a block there:
+# 256 n bytes, at most the 227 KB a block may use
 MAX_N = 900
 # K2 (csrc/schur_solve_fused.cu) runs a thread-block cluster of at most
 # _SCHUR_MAX_CLUSTER blocks per instance (above 8 a non-portable size,
@@ -193,10 +194,20 @@ def recover_bucket_plain(A: torch.Tensor, dy: torch.Tensor, Rp: torch.Tensor,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {   # of each C entry point <name>_f64, the stream last
-    "rhs_bucket": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "rhs_bucket": (_P,) * 7 + (_I,) * 4 + (_P,),
     "schur_solve_fused": (_P,) * 8 + (_I,) * 7 + (_P,),
     "recover_bucket": (_P,) * 7 + (_I,) + (_P,) * 2 + (_I,) * 4 + (_P,),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _rhs_work(B: int, K: int, mp: int, n: int) -> int:
+    """float64 elements of :func:`rhs_bucket`'s contraction scratch (the
+    slice partials and arrival counters), as its C library counts them."""
+    query = _build.load("rhs_bucket").rhs_bucket_work_doubles
+    query.argtypes = [ctypes.c_int] * 4
+    query.restype = ctypes.c_longlong
+    return int(query(B, K, mp, n))
 
 
 def _on_cpu(name: str, *xs: torch.Tensor) -> bool:
@@ -261,10 +272,11 @@ def rhs_bucket(A: torch.Tensor, Rc: torch.Tensor, XRp: torch.Tensor,
     out = torch.empty((B, mp), dtype=_F64, device=Rc.device)
     _int32("rhs_bucket", A, Rc)
     P = torch.empty_like(Rc)            # scratch: the (B, K, n, n) products
+    work = torch.empty(_rhs_work(B, K, mp, n), dtype=_F64, device=Rc.device)
     _build.launch("rhs_bucket", _ARGTYPES["rhs_bucket"], Rc.device,
                   A.data_ptr(), Rc.data_ptr(), XRp.data_ptr(),
-                  Sinv32.data_ptr(), P.data_ptr(), out.data_ptr(), B, K, mp,
-                  n)
+                  Sinv32.data_ptr(), P.data_ptr(), work.data_ptr(),
+                  out.data_ptr(), B, K, mp, n)
     rhs_bucket.launches += 1
     return out
 

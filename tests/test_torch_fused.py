@@ -11,8 +11,9 @@ K2 atol 1e-10 max|ref| against the exact solve of the live subsystem; K3
 those inputs (B=4, K=2, n=13, mp=9, F=37) each kernel runs at the main
 path's block shape (K=1, n=65, mp=66, F=4290: cardinality_least_squares(32,
 64, 8)), K3 with a zeroed padding (blocks of two sizes in one bucket) and K2
-with several fixed rows; K2's split of F across a thread-block cluster is
-emulated in numpy and held to the JAX math too.
+with several fixed rows; K2's split of F across a thread-block cluster, and
+K1's and K3's summation order (tensor-core k16 steps, K1's contraction
+split over K n^2), are emulated in numpy and held to the JAX math too.
 
 The CUDA kernels run only on the card: ``python3 chip_smoke.py`` holds each
 against the same plain version there.
@@ -289,6 +290,156 @@ def test_recover_bucket_matches_jax_math(shape, padded):
         np.testing.assert_allclose(jax_got, want, rtol=0, atol=bar)
     assert (dS.numpy()[:, ~pad[0]] == 0).all()
     assert (dX.numpy()[:, ~pad[0]] == 0).all()
+
+
+# the summation order of csrc/rhs_bucket.cu and csrc/recover_bucket.cu:
+# their staged tensor-core panels up to n = STAGED_MAX_N (m16n8k16 steps:
+# K in chunks of 16, the chunks added in order), the row panels above (k
+# in order); rhs_bucket's contraction in blocks of CWARPS warps of
+# _slice_steps(n^2) k16 steps over one k's n^2 elements, the warps'
+# partials added in warp order and the blocks' in (k, slice) order;
+# recover_bucket's A(dy) in k16 steps over j, added in order
+STAGED_MAX_N = 144
+CWARPS = 4
+MIN_STEPS, MAX_STEPS, SLICES_PER_TILE = 2, 8, 8
+
+
+def _slice_steps(nn):
+    """rhs_bucket.cu's slice_steps: k16 steps a warp of the contraction."""
+    steps = -(-nn // (16 * CWARPS * SLICES_PER_TILE))
+    return min(MAX_STEPS, max(MIN_STEPS, steps))
+
+
+def _chunked(a, b, n):
+    """a @ b over the last axis of a as the kernels sum it at block size
+    n: partial products of 16 (tensor cores) or 1 (FMA chains) terms,
+    added in k order."""
+    step = 16 if n <= STAGED_MAX_N else 1
+    acc = np.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], step):
+        acc = acc + a[..., k0:k0 + step] @ b[..., k0:k0 + step, :]
+    return acc
+
+
+def _rhs_kernel_order(A, Rc, XRp, Sinv):
+    """numpy emulation of csrc/rhs_bucket.cu's summation order."""
+    K, mp, n, _ = A.shape
+    B = Rc.shape[0]
+    nn = n * n
+    P = _chunked(Rc - XRp, Sinv.astype(np.float64), n).reshape(B, K, nn)
+    Af = A.reshape(K, mp, nn)
+    steps = _slice_steps(nn)
+    slice_len = 16 * steps * CWARPS
+    blocks = []
+    for k in range(K):
+        for s0 in range(0, nn, slice_len):
+            part = None
+            for w0 in range(s0, s0 + slice_len, 16 * steps):
+                acc = np.zeros((B, mp))
+                for e0 in range(w0, min(nn, w0 + 16 * steps), 16):
+                    e = slice(e0, min(nn, e0 + 16))
+                    acc = acc + P[:, k, e] @ Af[k, :, e].T
+                part = acc if part is None else part + acc
+            blocks.append(part)
+    out = blocks[0]
+    for part in blocks[1:]:
+        out = out + part
+    return out
+
+
+def _recover_kernel_order(A, dy, Rp, Rc, X, Sinv, pad):
+    """numpy emulation of csrc/recover_bucket.cu's summation order."""
+    K, mp, n, _ = A.shape
+    B = dy.shape[0]
+    Af = A.reshape(K, mp, n * n)
+    Ady = np.zeros((B, K, n * n))
+    for k in range(K):
+        for j0 in range(0, mp, 16):
+            Ady[:, k] = Ady[:, k] + dy[:, j0:j0 + 16] @ Af[k, j0:j0 + 16]
+    dS = np.where(pad, Ady.reshape(B, K, n, n) + Rp, 0.0)
+    T = Rc - _chunked(X, dS, n)
+    return dS, np.where(pad, _chunked(T, Sinv.astype(np.float64), n), 0.0)
+
+
+def test_bucket_order_constants_are_the_source_s():
+    """The emulated order's constants are the kernel sources': the staged
+    panels' largest n, the contraction's warps a block and its rule for
+    the k16 steps a warp; both sources choose the staged kernel up to
+    that n and add no value atomically."""
+    rhs = (_build.CSRC / "rhs_bucket.cu").read_text()
+    rec = (_build.CSRC / "recover_bucket.cu").read_text()
+    hdr = (_build.CSRC / "panel_dmma.cuh").read_text()
+    for src, name, value in ((hdr, "kMaxN", STAGED_MAX_N),
+                             (rhs, "kCWarps", CWARPS),
+                             (rhs, "kMinSteps", MIN_STEPS),
+                             (rhs, "kMaxSteps", MAX_STEPS),
+                             (rhs, "kSlicesPerTile", SLICES_PER_TILE)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", src) == [
+            str(value)], name
+    assert STAGED_MAX_N <= fused.MAX_N
+    for src in (rhs, rec):
+        assert "if (n <= panel::kMaxN) {" in src
+        assert "atomicAdd(" not in src.replace(
+            "atomicAdd(counters + tile, 1)", "")
+
+
+# (B, K, n, mp): test_fused.py's inputs (K = 2), the main path's block,
+# mkp_10's n = 10 (one k16 step), and K = 2 with a ragged last slice of the
+# contraction
+ORDER_SHAPES = {"test_fused": (4, 2, 13, 9), "main_block": (2, 1, 65, 66),
+                "n=10": (4, 1, 10, 46), "n=33 K=2": (3, 2, 33, 12)}
+
+
+@pytest.mark.parametrize("shape", list(ORDER_SHAPES))
+def test_rhs_bucket_kernel_order_matches_jax_math(shape):
+    """rhs_bucket's CUDA summation order, emulated, against the JAX kernel
+    math and float64 numpy, at test_fused.py's bar (1e-12 max|ref|)."""
+    B, K, n, mp = ORDER_SHAPES[shape]
+    A, Rc, XRp, Sinv = _rhs_inputs(B, K, n, mp, seed=11)
+    P = np.einsum("zkac,zkcd->zkad", Rc - XRp, Sinv.astype(np.float64))
+    want = np.einsum("kjpq,zkqp->zj", A, P)
+    jax_got = join64(*_run(jfused._rhs_math, *split64(A), *split64(Rc),
+                           *split64(XRp), jnp.asarray(Sinv)))
+    got = _rhs_kernel_order(A, Rc, XRp, Sinv)
+    atol = 1e-12 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    np.testing.assert_allclose(got, jax_got, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("shape,pad_kind", [
+    ("test_fused", "shared"), ("main_block", "none"), ("n=10", "shared"),
+    ("n=33 K=2", "instance"), ("test_fused", "instance")])
+def test_recover_bucket_kernel_order_matches_jax_math(shape, pad_kind):
+    """recover_bucket's CUDA summation order, emulated, against the JAX
+    kernel math and float64 numpy, at test_fused.py's bars (dS 1e-12, dX
+    1e-11, times max(1, max|ref|)); with a shared or a per-instance
+    (B, K, n, n) pad, 0 where the pad is."""
+    B, K, n, mp = ORDER_SHAPES[shape]
+    A, dy, Rp, Rc, X, Sinv, pad = _recover_inputs(
+        B, K, n, mp, seed=11, padded=pad_kind == "shared")
+    if pad_kind == "instance":
+        pad = np.ones((B, K, n, n), bool)
+        for b in range(B):
+            act = np.arange(n) < n - 1 - b
+            pad[b, -1] = act[:, None] & act[None, :]
+    dS_want = np.where(pad, np.einsum("kjpq,zj->zkpq", A, dy) + Rp, 0.0)
+    dX_want = np.where(pad, np.einsum(
+        "zkac,zkcd->zkad", Rc - np.einsum("zkac,zkcd->zkad", X, dS_want),
+        Sinv.astype(np.float64)), 0.0)
+    dyh, dyl = split64(dy)
+    out = _run(jfused._recover_math, *split64(A),
+               dyh.reshape(B, mp, 1, 1), dyl.reshape(B, mp, 1, 1),
+               *split64(Rp), *split64(Rc), *split64(X), jnp.asarray(Sinv),
+               jnp.asarray(np.broadcast_to(pad, (B, K, n, n))
+                           .astype(np.float32)))
+    dS, dX = _recover_kernel_order(A, dy, Rp, Rc, X, Sinv, pad)
+    for got, jax_got, want, bar in (
+            (dS, join64(out[0], out[1]), dS_want, 1e-12),
+            (dX, join64(out[2], out[3]), dX_want, 1e-11)):
+        atol = bar * max(1.0, np.abs(want).max())
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+        np.testing.assert_allclose(got, jax_got, rtol=0, atol=atol)
+        assert (got[~np.broadcast_to(pad, got.shape)] == 0).all()
 
 
 def test_cpu_wrappers_are_the_plain_versions():
