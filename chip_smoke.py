@@ -58,6 +58,22 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    output is checked (every slot OPTIMAL, children bound no lower than the
    root, the root's dual point feasible by an independent numpy check)
    and held against the same solve through the plain probe.
+   Then the recovery ladder (``core/sdpi.py``) at the default CUDA
+   settings: cls_32/direct's 32 boxes through
+   ``SDPInterface(dense, device="cuda").solve_batch(lb, ub,
+   rounding_seed=0)`` (every slot OPTIMAL, objvals within 2 * gaptol of
+   the float64 path's, the rounded points' flags as an independent numpy
+   check says) and a rungs request whose last nine boxes the direct rung
+   cannot decide (SDPI_SLOTS: infeasible, at and just below the
+   feasibility edge, unbounded; two with every z fixed): each slot ends
+   as its kind allows, and the rung that decided it (direct, probe,
+   penalty, bound, box, verify) is logged.  Then, in turns
+   (SDPI_ROUNDS), the ladder against direct ``ipm_solve``, cold against
+   warm-started children (from the root's y and X: the same statuses,
+   objvals within 2 * gaptol) and the rungs request; one profiled
+   solve_batch of each (device busy, launches, host syncs); and a small
+   CLS instance with the same kinds of boxes through the ladder on the
+   card and on the CPU (equal statuses, objvals within 2 * gaptol).
 5. refine path: the same four requests with phase32="refine" (the
    non-fused direction, probe rule, probe kernel): every request must
    launch the probe kernel and the three df32 kernels.  A direct request
@@ -101,12 +117,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    take two thirds of the run).
 
 The kernel launch counters are set to 0 just before each path (float64,
-refine, fused, on_pallas, refine_pallas, lite_pallas) and read just
+sdpi, refine, fused, on_pallas, refine_pallas, lite_pallas) and read just
 after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
-run takes 6 to 9 minutes on an H100, the build included.
+run takes 7 to 10 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -124,6 +140,8 @@ import numpy as np
 import torch
 
 from scipsdp_tpu_torch import _build
+from scipsdp_tpu_torch.core import sdpi as sdpi_module
+from scipsdp_tpu_torch.core.sdpi import SDPInterface
 from scipsdp_tpu_torch.models.families import cardinality_least_squares
 from scipsdp_tpu_torch.models.problem import densify
 from scipsdp_tpu_torch.ops import df32, fused, kernels
@@ -1109,6 +1127,318 @@ def f64_phase(cases, settings):
     return launches, outs
 
 
+# the sdpi phase: the rungs request's slots after the main request's, by
+# kind: (label, count); "t-" fixes the epigraph variable t below the root's
+# optimum t* by the given share of it, "z fixed" fixes every binary z (k of
+# them to 1), "unbounded" minimises -t
+SDPI_SLOTS = [("infeasible: k+1 z at 1", 1), ("t- 1e-3", 1), ("t- 1e-6", 1),
+              ("t- 1e-5", 1), ("t- 3e-5", 1), ("unbounded", 1),
+              ("t at t*", 1), ("z fixed", 2)]
+SDPI_ROUNDS = 5      # ladder against direct ipm_solve, warm against cold
+UNSOLVED = [int(SolverResultStatus.FAILED), int(SolverResultStatus.ITERLIMIT),
+            int(SolverResultStatus.TIMELIMIT)]
+
+
+def rung_boxes(prob, lb, ub, tstar, nfeat, k, rng):
+    """The rungs request: ``lb``/``ub`` with their last slots replaced by
+    SDPI_SLOTS' boxes.  Returns (lb, ub, obj, kinds), kinds per slot
+    ("child" for the boxes kept)."""
+    B = lb.shape[0]
+    lb, ub = lb.copy(), ub.copy()
+    obj = np.tile(prob.obj, (B, 1))
+    kinds = ["root"] + ["child"] * (B - 1)
+    tidx, zs = 2 * nfeat, np.arange(nfeat, 2 * nfeat)
+    s = B - sum(c for _, c in SDPI_SLOTS)
+    for kind, count in SDPI_SLOTS:
+        for _ in range(count):
+            lb[s], ub[s], kinds[s] = prob.lb, prob.ub, kind
+            if kind.startswith("infeasible"):
+                lb[s, zs[:k + 1]] = 1.0
+            elif kind.startswith("t- "):
+                lb[s, tidx] = ub[s, tidx] = tstar * (1 - float(kind[3:]))
+            elif kind == "t at t*":
+                lb[s, tidx] = ub[s, tidx] = tstar
+            elif kind == "unbounded":
+                obj[s, tidx] = -1.0
+            elif kind == "z fixed":
+                on = np.isin(zs, rng.choice(zs, size=k, replace=False))
+                lb[s, zs] = ub[s, zs] = on.astype(float)
+            s += 1
+    return lb, ub, obj, kinds
+
+
+def expected_ok(kind: str, status: int) -> bool:
+    """The statuses a slot of this kind may end with: a feasible box
+    OPTIMAL, an infeasible one INFEASIBLE, the unbounded one UNBOUNDED; the
+    boxes at the feasibility edge (t at or just below t*) any decided
+    status."""
+    S = SolverResultStatus
+    if kind in ("root", "child", "z fixed"):
+        return status == int(S.OPTIMAL)
+    if kind.startswith("infeasible") or kind == "t- 1e-3":
+        return status == int(S.INFEASIBLE)
+    if kind == "unbounded":
+        return status == int(S.UNBOUNDED)
+    return status not in UNSOLVED
+
+
+class RungLog:
+    """Wraps SDPInterface._run and records each ladder solve's kind (probe,
+    penalty, box, verify), the slots it solved (not given a conflict box)
+    and its wall, the device synchronized after it; and the wall of the
+    direct rung with rounding (``solve_and_round``, not through _run).
+    ``restore()`` unwraps both."""
+
+    def __init__(self, iface):
+        self.iface, self.run, self.calls = iface, iface._run, []
+        self.walls, self.direct_s = [], 0.0
+        self.round = sdpi_module.solve_and_round
+        iface._run = self
+
+        def timed_round(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.round(*args, **kw)
+            torch.cuda.synchronize()
+            self.direct_s += time.perf_counter() - t0
+            return out
+
+        sdpi_module.solve_and_round = timed_round
+
+    def restore(self):
+        self.iface._run = self.run
+        sdpi_module.solve_and_round = self.round
+
+    def __call__(self, b, lb, ub, cuts=None, warm_y=None, warm_mask=None,
+                 gaptol=None, warm_X=None, feastol_vec=None):
+        m = self.iface.m
+        act = ~(lb > ub).any(axis=1)
+        if feastol_vec is not None:
+            kind = "verify"
+        elif (b[:, m] == 1).all() and not b[:, :m].any():
+            kind = "probe"
+        elif (ub[act, m] > 0).any():
+            kind = "penalty"
+        elif (np.abs(ub[act, :m]) == 1e7).any() or (
+                np.abs(lb[act, :m]) == 1e7).any():
+            kind = "box"
+        else:
+            kind = "direct"
+        self.calls.append((kind, act))
+        t0 = time.perf_counter()
+        out = self.run(b, lb, ub, cuts, warm_y, warm_mask, gaptol=gaptol,
+                       warm_X=warm_X, feastol_vec=feastol_vec)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        return out
+
+    def rungs(self, res) -> list:
+        """Per slot the rung that decided it: presolve, direct, probe
+        (INFEASIBLE), penalty (OPTIMAL at a recorded tier), bound (a
+        penalty or Farkas bound), box, verify; "unsolved" if none did."""
+        S = SolverResultStatus
+        out = []
+        for s, st in enumerate(res.status.tolist()):
+            solved = [k for k, act in self.calls if act[s]]
+            if st in (int(S.PRESOLVED_OPTIMAL), int(S.PRESOLVED_INFEASIBLE)):
+                r = "presolve"
+            elif "probe" not in solved:
+                r = "direct"
+            elif "verify" in solved:
+                r = "verify"
+            elif st == int(S.INFEASIBLE):
+                r = "probe"
+            elif "box" in solved and st in (int(S.UNBOUNDED), int(S.OPTIMAL)):
+                r = "box"
+            elif st == int(S.OPTIMAL) and np.isfinite(res.tier[s]).all():
+                r = "penalty"
+            elif st == int(S.BOUND_ONLY):
+                r = "bound"
+            else:
+                r = "unsolved"
+            out.append(r)
+        return out
+
+
+def rounding_agrees(dense, res, lb, ub, feastol) -> dict:
+    """round_feas against an independent float64 numpy check of each
+    rounded point (box, integrality, LP rows, lambda_min(Z) >= -feastol),
+    on the points whose lambda_min is not within 1e-6 of the -feastol
+    edge (a float32 Cholesky cannot decide there); raises on a
+    disagreement."""
+    feas, clear = [], []
+    for y, lo, hi in zip(res.round_y, lb, ub):
+        lam = min(np.linalg.eigvalsh(np.einsum("jab,j->ab", dense.A[k], y)
+                                     - dense.C[k])[0]
+                  for k in range(dense.nblocks))
+        feas.append(bool(lam >= -feastol and (y >= lo).all()
+                         and (y <= hi).all()
+                         and (dense.G @ y >= dense.h - feastol).all()
+                         and (np.abs(y - np.round(y))[dense.integral]
+                              <= feastol).all()))
+        clear.append(abs(lam + feastol) > 1e-6)
+    feas, clear = np.array(feas), np.array(clear)
+    if not (res.round_feas[clear] == feas[clear]).all():
+        raise AssertionError(f"round_feas {res.round_feas.tolist()} against "
+                             f"numpy {feas.tolist()}")
+    return {"round_feasible": int(res.round_feas.sum()),
+            "numpy_feasible": int(feas.sum()), "edge_points": int((~clear).sum())}
+
+
+def ladder_request(label, iface, lb, ub, kinds, **kw):
+    """One solve_batch with the rungs logged; every slot must end as
+    expected_ok says.  Returns (result, per-slot rungs, launches)."""
+    log_ = RungLog(iface)
+    before, nveri = counts(), iface.stat_nveri_resolve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = iface.solve_batch(lb, ub, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log_.restore()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    rungs = log_.rungs(res)
+    bad = [(s, kinds[s], int(st)) for s, st in enumerate(res.status)
+           if not expected_ok(kinds[s], int(st))]
+    if bad:
+        raise AssertionError(f"{label}: slots (slot, kind, status) {bad}")
+    log("sdpi_request", request=label, B=len(kinds), nsolves=res.nsolves,
+        npenalty=res.npenalty, ndirect=res.ndirect, iters=res.iters,
+        verification_resolves=iface.stat_nveri_resolve - nveri,
+        calls=[k for k, _ in log_.calls], wall_s=wall,
+        direct_rung_s=log_.direct_s, later_rungs_s=log_.walls,
+        outside_solves_s=wall - log_.direct_s - sum(log_.walls),
+        statuses=collections.Counter(res.status.tolist()),
+        rung_by_kind=collections.Counter(
+            f"{k}: {r}" for k, r in zip(kinds, rungs)), launches=delta)
+    return res, rungs, delta
+
+
+def sdpi_phase(case, settings, f64_out, device):
+    """The recovery ladder (core/sdpi.py) at the default CUDA settings.
+    The main request (cls_32 B=32 root and child boxes) through
+    SDPInterface.solve_batch with rounding_seed=0: every slot OPTIMAL,
+    objvals within 2 * gaptol of the float64 path's, round_feas as a numpy
+    check says; the rungs request (SDPI_SLOTS' boxes in its last slots):
+    each slot as expected_ok says, with the rung that decided it logged;
+    both launch the probe kernel.  Then the main request against direct
+    ipm_solve and warm-started children against cold ones (warm from the
+    root's y and X: statuses equal, objvals within 2 * gaptol), in turns,
+    and one profiled solve_batch of each request.  Returns the launches
+    of the two requests' first solves."""
+    label, dense, _, req, _ = case
+    nfeat, k = 32, 8
+    prob = cardinality_least_squares(nfeat, 2 * nfeat, k, seed=5)
+    lb, ub = req[1][:, :-1], req[2][:, :-1]
+    B = lb.shape[0]
+    iface = SDPInterface(dense, device=device)
+    if (iface.settings.ipm.step_rule, iface.settings.ipm.use_lanes_chol,
+            iface.settings.ipm.phase32) != ("probe", True, "off"):
+        raise AssertionError(f"SDPInterface settings {iface.settings.ipm}")
+    gaptol, feastol = settings.gaptol, iface.settings.bb.feastol
+    reset_counts()
+    main, _, n_main = ladder_request(f"{label} ladder", iface, lb, ub,
+                                     ["root"] + ["child"] * (B - 1),
+                                     rounding_seed=0)
+    tstar = float(main.y[0, 2 * nfeat])
+    lbr, ubr, objr, kinds = rung_boxes(prob, lb, ub, tstar, nfeat, k,
+                                       np.random.default_rng(7))
+    rungs, slot_rungs, n_rungs = ladder_request(
+        f"{label} rungs", iface, lbr, ubr, kinds, obj=objr, rounding_seed=0)
+    launches = counts()
+    for what, n in (("main", n_main), ("rungs", n_rungs)):
+        if n["cholesky_lanes"] == 0:
+            raise AssertionError(f"sdpi {what}: cholesky_lanes not launched")
+    d_ref = f64_out.dobj.cpu().numpy()
+    dev = np.abs(main.objval - d_ref) / (1 + np.abs(d_ref))
+    if not (dev <= 2 * gaptol).all():
+        raise AssertionError(f"sdpi: objval differs from ipm_solve by "
+                             f"{dev.max()}")
+    agree_main = rounding_agrees(dense, main, lb, ub, feastol)
+    agree_rungs = rounding_agrees(dense, rungs, lbr, ubr, feastol)
+
+    # the main request: ladder against direct ipm_solve; warm against cold
+    warm = (np.tile(main.y[0], (B, 1)), np.ones(B, bool),
+            [np.tile(x[:1], (B, 1, 1, 1)) for x in main.X])
+    runs = {
+        "ladder": lambda: iface.solve_batch(lb, ub, rounding_seed=0),
+        "ipm_solve": lambda: ipm_solve(iface.data, *req,
+                                       settings=iface.settings.ipm),
+        "cold": lambda: iface.solve_batch(lb, ub),
+        "warm": lambda: iface.solve_batch(lb, ub, warm=warm),
+        "rungs": lambda: iface.solve_batch(lbr, ubr, obj=objr,
+                                           rounding_seed=0)}
+    walls = {k: [] for k in runs}
+    outs = {}
+    for r in range(SDPI_ROUNDS):
+        order = list(runs) if r % 2 == 0 else list(runs)[::-1]
+        for key in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[key] = runs[key]()
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+    cold, warm_res = outs["cold"], outs["warm"]
+    if not (warm_res.status == cold.status).all():
+        raise AssertionError("sdpi: warm-started statuses differ from cold")
+    wdev = np.abs(warm_res.objval - cold.objval) / (1 + np.abs(cold.objval))
+    if not (wdev <= 2 * gaptol).all():
+        raise AssertionError(f"sdpi: warm objvals differ by {wdev.max()}")
+    log("sdpi_timing", request=label, rounds=SDPI_ROUNDS,
+        wall_s_median={k: float(np.median(v)) for k, v in walls.items()},
+        wall_s=walls, nsolves={k: getattr(o, "nsolves", 1)
+                               for k, o in outs.items()},
+        iters={k: int(o.iters) for k, o in outs.items()},
+        ladder_statuses=collections.Counter(outs["ladder"].status.tolist()),
+        ipm_solve_statuses=collections.Counter(
+            outs["ipm_solve"].status.tolist()),
+        max_rel_objval_vs_f64_path=float(dev.max()),
+        max_rel_objval_warm_vs_cold=float(wdev.max()),
+        rounding_main=agree_main, rounding_rungs=agree_rungs,
+        rung_per_slot=dict(zip(range(B), zip(kinds, slot_rungs))))
+    for key in ("ipm_solve", "ladder", "cold", "warm", "rungs"):
+        log("sdpi_profile", request=label, run=key,
+            **device_profile(runs[key])[1])
+    return launches
+
+
+def sdpi_cpu_reference(device, settings) -> None:
+    """A small CLS instance through the ladder on the card and on the CPU,
+    with the card's settings: SDPI_SLOTS' boxes after a root and a child;
+    statuses equal, objvals within 2 * gaptol (infinities equal)."""
+    nfeat, k = 8, 3
+    prob = cardinality_least_squares(nfeat, 2 * nfeat, k, seed=1)
+    dense = densify(prob)
+    B = 2 + sum(c for _, c in SDPI_SLOTS)
+    lb, ub = node_boxes(prob, B, nfeat, np.random.default_rng(2))
+    s = Settings(ipm=settings)
+    ifaces = {d: SDPInterface(dense, s, device=d) for d in ("cpu", device)}
+    tstar = float(ifaces["cpu"].solve_batch(prob.lb[None],
+                                            prob.ub[None]).y[0, 2 * nfeat])
+    lb, ub, obj, kinds = rung_boxes(prob, lb, ub, tstar, nfeat, k,
+                                    np.random.default_rng(3))
+    res = {d: i.solve_batch(lb, ub, obj=obj, rounding_seed=0)
+           for d, i in ifaces.items()}
+    ref, out = res["cpu"], res[device]
+    if not (out.status == ref.status).all():
+        raise AssertionError(f"sdpi small CLS: statuses {out.status} on the "
+                             f"card, {ref.status} on the CPU")
+    # the slots whose objval is a bound: equal infinities, finite ones
+    # within 2 * gaptol
+    S = SolverResultStatus
+    held = np.isin(ref.status, [int(S.OPTIMAL), int(S.PRESOLVED_OPTIMAL),
+                                int(S.BOUND_ONLY), int(S.UNBOUNDED)])
+    fin = held & np.isfinite(ref.objval)
+    dev = np.abs(out.objval[fin] - ref.objval[fin]) / (1 + np.abs(
+        ref.objval[fin]))
+    if not ((dev <= 2 * settings.gaptol).all() and np.array_equal(
+            out.objval[held & ~fin], ref.objval[held & ~fin])):
+        raise AssertionError(f"sdpi small CLS: objvals {out.objval} on the "
+                             f"card, {ref.objval} on the CPU")
+    log("sdpi_cpu_reference", instance="cls_8x16", B=B,
+        statuses=out.status.tolist(), kinds=kinds, nsolves=out.nsolves,
+        cpu_nsolves=ref.nsolves, max_rel_objval=float(dev.max()))
+
+
 def bounds_agree(label, out, ref, gaptol, what) -> tuple:
     """Slots OPTIMAL in both solves bound within 2 * gaptol * (1 + |dobj|);
     every slot of ``out`` is OPTIMAL or FAILED (no bound: the JAX package
@@ -1353,7 +1683,11 @@ def cpu_reference(device, routes, bars) -> None:
             iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
 
-def profile_one(label, data, req, settings, route) -> None:
+def device_profile(fn) -> tuple:
+    """(output, profile) of ``fn``: one call under torch.profiler (its
+    wall, device busy time, kernel launches, the ops and kernels with the
+    most device time) and one in CUDA sync debug mode (host syncs by the
+    Python line that synced)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1361,7 +1695,7 @@ def profile_one(label, data, req, settings, route) -> None:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = ipm_solve(data, *req, settings=settings)
+        out = fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
@@ -1372,27 +1706,32 @@ def profile_one(label, data, req, settings, route) -> None:
     evts = sorted(prof.key_averages(), key=dev_us, reverse=True)
     kern = [e for e in evts if e.device_type == DeviceType.CUDA]
     ops = [e for e in evts if e.device_type != DeviceType.CUDA]
-    busy = sum(dev_us(e) for e in kern)
-
-    # host syncs of one solve (the loop reads the done mask once per
-    # iteration); each warning points at the Python line that synced
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        ipm_solve(data, *req, settings=settings)
+        fn()
         torch.cuda.set_sync_debug_mode("default")
     syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
              if "synchronizing CUDA operation" in str(w.message)]
-    launches = sum(e.count for e in kern)
+    return out, {
+        "profiled_wall_s": wall, "device_busy_us": sum(map(dev_us, kern)),
+        "kernel_launches": sum(e.count for e in kern),
+        "host_syncs": len(syncs),
+        "sync_sites": sorted(collections.Counter(syncs).items()),
+        "top_ops": [{"op": e.key, "self_device_us": dev_us(e),
+                     "calls": e.count} for e in ops[:10]],
+        "top_kernels": [{"kernel": e.key[:90], "device_us": dev_us(e),
+                         "calls": e.count} for e in kern[:8]]}
+
+
+def profile_one(label, data, req, settings, route) -> None:
+    """device_profile of one solve (the loop reads the done mask once per
+    iteration: one host sync each)."""
+    out, prof = device_profile(lambda: ipm_solve(data, *req,
+                                                 settings=settings))
     log("profile", request=label, route=route, iters=out.iters,
-        f64_iters=out.f64_iters, profiled_wall_s=wall, device_busy_us=busy,
-        kernel_launches=launches, launches_per_iter=launches / out.iters,
-        host_syncs=len(syncs),
-        sync_sites=sorted(collections.Counter(syncs).items()),
-        top_ops=[{"op": e.key, "self_device_us": dev_us(e), "calls": e.count}
-                 for e in ops[:10]],
-        top_kernels=[{"kernel": e.key[:90], "device_us": dev_us(e),
-                      "calls": e.count} for e in kern[:8]])
+        f64_iters=out.f64_iters,
+        launches_per_iter=prof["kernel_launches"] / out.iters, **prof)
 
 
 def main() -> int:
@@ -1430,6 +1769,8 @@ def main() -> int:
               "f64": settings}
     paths = {}
     paths["f64"], f64_outs = f64_phase(cases, settings)
+    paths["sdpi"] = sdpi_phase(cases[0], settings, f64_outs[0], device)
+    sdpi_cpu_reference(device, settings)
     paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
     paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
     paths.update(pallas_phase(cases, pallas, f64_outs))

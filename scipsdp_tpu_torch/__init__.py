@@ -8,10 +8,15 @@ Module names mirror the JAX package so each counterpart is easy to find:
 * ``ops``     — batched dense linear algebra (``eigen``), the batched
                 interior-point relaxation solver (``ipm``), and the CUDA
                 kernels beside their plain PyTorch versions (``kernels``,
-                sources in ``csrc/``, built by ``_build`` at first use).
+                sources in ``csrc/``, built by ``_build`` at first use),
+                and the one-variable SDP solver (``onevar``, numpy).
+* ``core``    — the SDP interface over the batched solver: the recovery
+                ladder (``sdpi``) and the batched feasibility check of
+                candidate points (``feascheck``).
 * ``utils``   — settings dataclasses and solve statuses.
-* ``interop`` — builds the port's solver data from the JAX package's
-                arrays, so both solvers can be handed the same problem.
+* ``interop`` — builds the port's solver data and settings from the JAX
+                package's arrays and dataclasses, so both solvers can be
+                handed the same problem.
 
 Importing the package loads nothing heavy, sets no global flag and never
 imports JAX.

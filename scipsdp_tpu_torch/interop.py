@@ -4,14 +4,18 @@ The JAX package's ``IPMData`` holds the same per-bucket arrays as the
 port's; :func:`ipm_data_from_numpy` takes them as numpy arrays (for example
 ``np.asarray`` of each JAX array) and returns the port's ``IPMData`` on a
 torch device, so both solvers can be given exactly the same problem.
+:func:`settings_from_jax` does the same for a settings dataclass.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from scipsdp_tpu_torch.ops.ipm import IPMData
+from scipsdp_tpu_torch.utils import config
 
 
 def ipm_data_from_numpy(A, C, dimmask, G, h, b_base, nvars, ndim_sdp,
@@ -36,3 +40,17 @@ def ipm_data_from_numpy(A, C, dimmask, G, h, b_base, nvars, ndim_sdp,
         ndim_sdp=int(ndim_sdp),
         block_of=tuple((int(t), int(k)) for t, k in block_of),
     )
+
+
+def settings_from_jax(jsettings):
+    """The port's settings dataclass of the same name as ``jsettings`` (a
+    JAX package ``Settings``, ``IPMSettings``, ``BBSettings``, ...), every
+    field copied; nested settings dataclasses are converted too.  Reads
+    only the fields, so it needs no import of the JAX package."""
+    cls = getattr(config, type(jsettings).__name__)
+    vals = {}
+    for f in dataclasses.fields(jsettings):
+        v = getattr(jsettings, f.name)
+        vals[f.name] = (settings_from_jax(v) if dataclasses.is_dataclass(v)
+                        else v)
+    return cls(**vals)

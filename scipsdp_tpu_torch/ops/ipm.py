@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -392,6 +392,11 @@ class SolveOutput(NamedTuple):
     f64_iters: int           # iterations that ran the float64 tier (all of
                              # them with phase32="off"; in a float32 tier
                              # the nan32 repairs, escalations and handoff)
+    # pre-optimal snapshot (settings.preopt_gap > 0): the first iterate
+    # whose relative gap fell below preopt_gap, a more interior warm start
+    y_pre: Optional[torch.Tensor] = None       # (B, mp)
+    X_pre: Optional[Tuple[torch.Tensor, ...]] = None
+    has_pre: Optional[torch.Tensor] = None     # (B,) bool
 
 
 class EvalOut(NamedTuple):
@@ -407,22 +412,14 @@ class EvalOut(NamedTuple):
     conv: torch.Tensor
 
 
-def _check_supported(settings: IPMSettings, warm) -> None:
-    """Raise for the parts of the JAX solver this port does not carry yet."""
+def _check_supported(settings: IPMSettings) -> None:
+    """Raise for the part of the JAX solver this port does not carry."""
     if settings.dtype != "float64":
         raise NotImplementedError(
             "ipm_solve: only dtype='float64'.  The JAX reference's "
             "dtype='float32' solve raises NameError (its float32 pass reads "
             "A32, which it binds only for phase32 tiers, and those need "
             "dtype='float64'), so there is nothing to hold a port against")
-    if settings.preopt_gap > 0.0:
-        raise NotImplementedError(
-            "ipm_solve: preopt_gap > 0 (pre-optimal snapshots) waits for "
-            "the warm-start port with the host B&B")
-    if any(w is not None for w in warm):
-        raise NotImplementedError(
-            "ipm_solve: warm_y/warm_mask/warm_X/ip_point wait for the "
-            "warm-start port with the host B&B")
 
 
 def ipm_solve(
@@ -433,11 +430,13 @@ def ipm_solve(
     Gcut=None,            # (B, q, mp) per-node cut rows  Gcut y >= hcut
     hcut=None,            # (B, q)
     cutvalid=None,        # (B, q) bool
-    warm_y=None,          # not ported yet (raises)
-    warm_mask=None,       # not ported yet (raises)
+    warm_y=None,          # (B, mp) parent dual solution (warm start)
+    warm_mask=None,       # (B,) bool: rows with a valid warm_y
     gaptol_vec=None,      # (B,) per-instance gap tolerance
-    warm_X=None,          # not ported yet (raises)
-    ip_point=None,        # not ported yet (raises)
+    warm_X=None,          # per-bucket (B, K_t, n, n) parent primal blocks
+    ip_point=None,        # (y_ip (mp,), per-bucket X_ip (K_t, n, n)):
+                          # root analytic centres, the warm start's
+                          # interior target instead of the scaled identity
     feastol_vec=None,     # (B,) per-instance CONVERGENCE feastol override
     *,
     settings: IPMSettings,
@@ -463,8 +462,16 @@ def ipm_solve(
     "on" runs the tier's Newton direction through the three fused kernels
     of ``ops/fused.py`` (plain versions on CPU tensors), "off" through the
     separate contractions; outside the refine tier it is inert, as in JAX.
+
+    ``warm_y`` (with ``warm_mask``) projects the parent's dual point into
+    each child's box with a strict-interior margin, floors its slack on
+    the PSD cone and convex-combines it with an interior target (the
+    scaled identity, or ``ip_point``'s analytic centres);
+    ``warm_X`` does the same for the primal blocks (JAX ipm.py:523-600).
+    ``settings.preopt_gap > 0`` also returns the first iterate whose
+    relative gap fell below it (``y_pre``, ``X_pre``, ``has_pre``).
     """
-    _check_supported(settings, (warm_y, warm_mask, warm_X, ip_point))
+    _check_supported(settings)
     dtype = torch.float64
     dev = data.device
 
@@ -527,6 +534,16 @@ def ipm_solve(
     y0 = torch.where(pre.ubmask & ~pre.lbmask,
                      torch.clamp_max(pre.ub - 1.0, 0.0), y0)
     y0 = torch.where(pre.fix, pre.fixval, y0)
+    if warm_y is not None:
+        # warm start (warmstartproject=2): the parent's point projected
+        # into the child's box with a strict-interior margin
+        wm = (torch.ones((B,), dtype=torch.bool, device=dev)
+              if warm_mask is None else tens(warm_mask, torch.bool))
+        margin = 0.05 * torch.where(two, pre.ub - pre.lb, 2.0)
+        yw = torch.clamp(tens(warm_y),
+                         torch.where(pre.lbmask, pre.lb + margin, -torch.inf),
+                         torch.where(pre.ubmask, pre.ub - margin, torch.inf))
+        y0 = torch.where(pre.fix, pre.fixval, torch.where(wm[:, None], yw, y0))
 
     Z0 = blockmap_y(y0)
     normb = torch.amax(b.abs(), dim=1)
@@ -545,6 +562,42 @@ def ipm_solve(
                * torch.ones((B, data.A[t].shape[0], 1, 1), dtype=dtype,
                             device=dev) for t in bidx)
     S0 = X0
+    if warm_y is not None:
+        # the slack from the projected point (and the parent's primal),
+        # floored on the PSD cone and convex-combined with an interior
+        # target (fillStartZ / fillStartX): the scaled identity, or the
+        # analytic centres of ``ip_point``
+        f = settings.warmstartipfactor
+        wmk = wm[:, None, None, None]
+
+        def psd_floor(t, Mt, floor_rel):
+            """Project onto the PSD cone with an eigenvalue floor relative
+            to the largest |eigenvalue|; the padding keeps the scaled
+            identity."""
+            pad = eyen[t][None, None] * xi
+            lam, V = torch.linalg.eigh(torch.where(pad_outer[t], Mt, pad))
+            lfloor = floor_rel * torch.clamp_min(
+                lam.abs().amax(dim=-1, keepdim=True), 1.0)
+            lam = torch.maximum(lam, lfloor)
+            proj = torch.einsum("xkae,xke,xkbe->xkab", V, lam, V)
+            return torch.where(pad_outer[t], proj, pad)
+
+        if ip_point is not None:
+            y_ip, X_ip = ip_point
+            S_tgt = tuple(psd_floor(t, (torch.einsum(
+                "kjab,j->kab", data.A[t], tens(y_ip)) - data.C[t])[None]
+                .expand(Z0[t].shape), 1e-2) for t in bidx)
+            X_tgt = tuple(psd_floor(t, tens(X_ip[t])[None].expand(
+                X0[t].shape), 1e-2) for t in bidx)
+        else:
+            S_tgt = X_tgt = X0
+        S0 = tuple(sym(torch.where(
+            wmk, (1.0 - f) * psd_floor(t, Z0[t], 1e-3) + f * S_tgt[t], S0[t]))
+            for t in bidx)
+        if warm_X is not None:
+            X0 = tuple(sym(torch.where(
+                wmk, (1.0 - f) * psd_floor(t, sym(tens(warm_X[t])), 1e-3)
+                + f * X_tgt[t], X0[t])) for t in bidx)
     sl0 = torch.where(pre.rowmask,
                       torch.maximum(torch.einsum("xpm,xm->xp", Gall, y0)
                                     - hall, scale[:, None]),
@@ -1334,6 +1387,11 @@ def ipm_solve(
 
     st, ev = st0, evaluate(st0)
     f64_iters = 0
+    # pre-optimal snapshot: the first iterate of each instance whose
+    # relative gap fell below preopt_gap (updated on the device)
+    track_pre = settings.preopt_gap > 0.0
+    y_pre, X_pre = st0.y, st0.X
+    has_pre = torch.zeros((B,), dtype=torch.bool, device=dev)
     while st.it < settings.max_iters:
         # one host read per iteration: the batch's done mask, and in a
         # float32 tier the choice of tier in the same transfer
@@ -1345,7 +1403,14 @@ def ipm_solve(
         if all_done:
             break
         f64_iters += not use32
+        was_done = st.done
         st, ev = body(st, ev, use32)
+        if track_pre:
+            hit = ~has_pre & ~was_done & (ev.relgap <= settings.preopt_gap)
+            y_pre = torch.where(hit[:, None], st.y, y_pre)
+            X_pre = tuple(torch.where(hit[:, None, None, None], st.X[t],
+                                      X_pre[t]) for t in bidx)
+            has_pre = has_pre | hit
 
     converged = st.converged | (ev.conv & ~pre.conflict & ~pre.allfixed)
     yh = torch.where(pre.fix, pre.fixval, st.y)
@@ -1385,4 +1450,8 @@ def ipm_solve(
         xlb=st.xlb,
         xub=st.xub,
         f64_iters=f64_iters,
+        y_pre=(torch.where(pre.fix, pre.fixval, y_pre) if track_pre
+               else None),
+        X_pre=X_pre if track_pre else None,
+        has_pre=has_pre if track_pre else None,
     )

@@ -6,17 +6,21 @@ explicitly on both sides: "auto" would resolve differently per backend.
 Data crosses between the two frameworks only as numpy arrays.
 """
 
+import dataclasses
 import functools
 
 import jax
 import numpy as np
 import torch
 
+from scipsdp_tpu.core.sdpi import SDPInterface as JaxSDPInterface
 from scipsdp_tpu.models import families as jfam
 from scipsdp_tpu.models.problem import densify as jdensify
 from scipsdp_tpu.ops import ipm as jipm
 from scipsdp_tpu.utils.config import IPMSettings as JaxIPMSettings
-from scipsdp_tpu_torch.interop import ipm_data_from_numpy
+from scipsdp_tpu_torch.core.sdpi import SDPInterface as TorchSDPInterface
+from scipsdp_tpu_torch.interop import ipm_data_from_numpy, settings_from_jax
+from scipsdp_tpu_torch.models.problem import DenseSDPData as TorchDense
 from scipsdp_tpu_torch.ops import ipm as tipm
 from scipsdp_tpu_torch.utils.config import IPMSettings as TorchIPMSettings
 
@@ -57,6 +61,20 @@ def port_data(jdata):
         [np.asarray(d) for d in jdata.dimmask], np.asarray(jdata.G),
         np.asarray(jdata.h), np.asarray(jdata.b_base), jdata.nvars,
         jdata.ndim_sdp, jdata.block_of, device="cpu")
+
+
+def port_dense(jdense):
+    """The port's DenseSDPData with the JAX one's arrays."""
+    return TorchDense(**{f.name: getattr(jdense, f.name)
+                         for f in dataclasses.fields(jdense)})
+
+
+def interfaces(jdense, settings, **kw):
+    """(JAX SDPInterface, the port's on the CPU) for one DenseSDPData,
+    with the same settings (a JAX ``Settings``)."""
+    return (JaxSDPInterface(jdense, settings, **kw),
+            TorchSDPInterface(port_dense(jdense), settings_from_jax(settings),
+                              device="cpu", **kw))
 
 
 def node_boxes(prob, B: int, seed: int = 0, mode: str = "direct",

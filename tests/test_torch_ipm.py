@@ -165,25 +165,32 @@ def test_lanes_chol_flag_on_cpu_uses_plain_version():
     ({}, {"ip_point": "ip"}),
 ])
 def test_unported_paths_raise(kw, extra):
-    """Every path the port does not carry yet raises.  phase32 "refine",
-    "on" and "lite" and use_pallas are ported, and use_df32="on" and
-    fused_direction="on" are inert outside the refine tier, as in JAX:
-    those six cases solve.  dtype="float32" still raises: the JAX
-    reference's float32 solve itself raises NameError (its float32 pass
-    reads A32, bound only for the phase32 tiers, which need float64), so
-    there is no reference to hold a port against."""
+    """Only dtype="float32" raises: the JAX reference's float32 solve
+    itself raises NameError (its float32 pass reads A32, bound only for
+    the phase32 tiers, which need float64), so there is no reference to
+    hold a port against.  phase32 "refine", "on" and "lite", use_pallas,
+    the warm starts (warm_y, warm_X, ip_point) and preopt_gap are ported,
+    and use_df32="on" and fused_direction="on" are inert outside the
+    refine tier, as in JAX: those cases solve (the warm-start arguments
+    come from a first solve of the same boxes)."""
     _, _, tdata = problem("cls")
     b, lb, ub = node_boxes(problem("cls")[0], 2)
     settings = tcfg.IPMSettings(**(pinned("probe") | kw))
-    if kw in ({"phase32": "refine"}, {"phase32": "on"}, {"phase32": "lite"},
-              {"use_df32": "on"}, {"fused_direction": "on"},
-              {"use_pallas": True}):
-        out = tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
-        assert out.status.tolist() == [1, 1]
-        assert out.f64_iters <= out.iters
+    if kw == {"dtype": "float32"}:
+        with pytest.raises(NotImplementedError):
+            tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
         return
-    with pytest.raises(NotImplementedError):
-        tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
+    if extra:
+        first = tipm.ipm_solve(tdata, b, lb, ub, settings=settings)
+        extra = {"warm_y": {"warm_y": first.y},
+                 "warm_X": {"warm_X": first.X},
+                 "ip_point": {"ip_point": (first.y[0],
+                                           tuple(x[0] for x in first.X))},
+                 }[next(iter(extra))]
+    out = tipm.ipm_solve(tdata, b, lb, ub, settings=settings, **extra)
+    assert out.status.tolist() == [1, 1]
+    assert out.f64_iters <= out.iters
+    assert (out.has_pre is not None) == (settings.preopt_gap > 0)
 
 
 def test_settings_fields_match_jax():
