@@ -42,14 +42,18 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    ``cholesky``, ``tril_inverse``, ``schur_wwt`` and ``chol_inverse_lanes``
    at the float32 tiers' shapes for cls_32 B=32, cls_64 B=8 and mkp_10
    B=32, at tests/test_pallas.py's and tests/test_lanes_chol.py's shapes,
-   at n = 300 (the device-memory path), ``tril_inverse`` also on an
-   ill-conditioned cls_64 factor (rows scaled by e^U(-4, 4), as the IPM's
-   factors are near the optimum), and ``schur_wwt`` around its panel
+   at n = 300 (the device-memory path), ``tril_inverse`` and
+   ``chol_inverse_lanes`` also on an ill-conditioned cls_64 stack (rows
+   and columns scaled by e^U(-4, 4), as the IPM's factors are near the
+   optimum; ``chol_inverse_lanes`` there no further from numpy than the
+   ``cholesky`` -> ``tril_inverse`` kernel pair, whose times and the
+   library pair's ``cholesky_ex`` -> ``solve_triangular`` are logged
+   beside it at every shape), and ``schur_wwt`` around its panel
    and copy-width edges (mp = 16, 17, 80, 81; odd F, F % 4 == 0; the
    result symmetric), against their plain versions
    and float64 numpy references at those tests' bars (PALLAS_BARS), NaN
-   per matrix (``cholesky``: on and below the whole diagonal, zeros
-   above), two launches bit for bit.
+   per matrix (``cholesky``, ``chol_inverse_lanes``: on and below the
+   whole diagonal, zeros above), two launches bit for bit.
 4. float64 path: batched interior-point relaxation solves through
    ``ipm_solve`` with the device's resolved settings (phase32="off", probe
    step rule with the probe kernel): three requests of 32
@@ -880,8 +884,8 @@ def pallas_cases(device):
                 torch.linalg.solve_triangular(L, eye, upper=False)), N // 2),
             "chol_inverse_lanes": ((A,), np.linalg.inv(L64), None, N // 2),
         }
-        if scale:   # the ill-conditioned factor is tril_inverse's case
-            per_kernel = {"tril_inverse": per_kernel["tril_inverse"]}
+        if scale:   # the ill-conditioned stack: the two inverses' case
+            del per_kernel["cholesky"]
         cases.append((label, per_kernel))
     for label, B, mp, F in GRAM_SHAPES:
         W = rng.standard_normal((B, mp, F)).astype(np.float32)
@@ -948,18 +952,52 @@ def pallas_check(name, label, args, ref, bad) -> tuple:
             raise AssertionError(f"{name} {label}: NaN pattern wrong: "
                                  f"{nan_mat.nonzero().flatten().tolist()}")
         low = torch.ones(n, n, dtype=torch.bool, device=out.device).tril()
-        if name == "cholesky" and not (bool(torch.isnan(out[bad][low]).all())
-                                       and bool((out[bad][~low] == 0).all())):
+        if name in ("cholesky", "chol_inverse_lanes") and not (
+                bool(torch.isnan(out[bad][low]).all())
+                and bool((out[bad][~low] == 0).all())):
             raise AssertionError(f"{name} {label}: the matrix that is not "
                                  "positive definite is not NaN on and below "
                                  "its diagonal with zeros above")
     return got, err, err_ref
 
 
+def kernel_pair(A: torch.Tensor) -> torch.Tensor:
+    """chol_inverse_lanes' two-call yardstick in the port: the cholesky
+    kernel, then the tril_inverse kernel."""
+    return kernels.tril_inverse(kernels.cholesky(A))
+
+
+def library_pair(A: torch.Tensor) -> torch.Tensor:
+    """chol_inverse_lanes' two-call yardstick in the library:
+    cholesky_ex, then solve_triangular on the identity."""
+    L = torch.linalg.cholesky_ex(A)[0]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    return torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+
+
+def pair_entry(label, args, ref, err_ref) -> dict:
+    """chol_inverse_lanes beside its two-call yardsticks (kernel_pair,
+    library_pair): their device and eager ms and the kernel pair's error
+    from numpy; on the ill-conditioned stack the fused kernel must be no
+    further from numpy than the pair."""
+    pair_err = float(np.abs(kernel_pair(*args).double().cpu().numpy()
+                            .reshape(ref.shape) - ref).max())
+    if "ill-conditioned" in label and not err_ref <= pair_err:
+        raise AssertionError(f"chol_inverse_lanes {label}: {err_ref} from "
+                             f"numpy, the cholesky -> tril_inverse pair "
+                             f"{pair_err}")
+    tk, tl = graph_times([kernel_pair, library_pair], args)
+    tke, tle = eager_times([kernel_pair, library_pair], args)
+    return {"kernel_pair_ms": tk, "library_pair_ms": tl,
+            "kernel_pair_eager_ms": tke, "library_pair_eager_ms": tle,
+            "kernel_pair_err_vs_numpy": pair_err}
+
+
 def pallas_kernel_phase(device) -> dict:
     """Check and time the four float32 kernels against their plain
     versions, the numpy references and (#2-#4) the library call that
-    computes the same function; returns the main-path entry of each."""
+    computes the same function (#5: the two-call yardsticks, pair_entry);
+    returns the main-path entry of each."""
     out = {}
     for label, per_kernel in pallas_cases(device):
         for name, (args, ref, library, bad) in per_kernel.items():
@@ -974,6 +1012,8 @@ def pallas_kernel_phase(device) -> dict:
                      "library_ms": tl[0] if library else None,
                      "library_eager_ms": tle[0] if library else None,
                      **kernel_bound(name, args, got)}
+            if name == "chol_inverse_lanes":
+                entry.update(pair_entry(label, args, ref, err_ref))
             log("kernel", name=name, shape=label,
                 args=[list(a.shape) for a in args], bar=PALLAS_BARS[name],
                 **entry)

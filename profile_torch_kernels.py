@@ -5,19 +5,26 @@ CUDA card: the tensor-core kernels ``bmm64`` (float64 DMMA) and
 and ``tril_inverse``, the panel-blocked factor-quality ``cholesky``, the
 fused Schur solve ``schur_solve_fused`` (a cluster an instance) and the
 fused direction's staged float64 tensor-core ``rhs_bucket`` and
-``recover_bucket``.
+``recover_bucket``, and the fused ``A -> L^-1`` ``chol_inverse_lanes``.
 
     python3 profile_torch_kernels.py check [GROUP]     # build, ptxas, errors
     python3 profile_torch_kernels.py variants [GROUP]  # time design variants
     python3 profile_torch_kernels.py dissect [GROUP]   # parts cut out
     python3 profile_torch_kernels.py phases [GROUP]    # kernel phases
     python3 profile_torch_kernels.py reference         # Schur plans, chaos
+    python3 profile_torch_kernels.py phases cholinv [PARENT_CSRC]
+    python3 profile_torch_kernels.py dissect cholinv [PARENT_CSRC]
 
 GROUP takes one group of kernels: ``mma`` the tensor-core kernels, ``tri``
 the two blocked triangular ones, ``chol`` the factor-quality Cholesky,
-``schur`` the fused Schur solve, ``bucket`` rhs_bucket and recover_bucket
-(default all; ``phases`` without a group runs chip_smoke.py's df32 and
-float32 kernel phases).
+``schur`` the fused Schur solve, ``bucket`` rhs_bucket and recover_bucket,
+``cholinv`` chol_inverse_lanes (default all; ``phases`` without a group
+runs chip_smoke.py's df32 and float32 kernel phases).  PARENT_CSRC, the
+``scipsdp_tpu_torch/csrc`` directory of another checkout (an unpacked
+``git archive`` of the parent commit under ``build/``), adds that
+checkout's ``chol_inverse_lanes.cu``, built against its own headers and
+called with its own entry point, to ``phases cholinv`` (timed in turns
+with the committed kernel) and to ``dissect cholinv`` (cut up).
 ``check`` builds the sources, prints the compiler's report, and holds
 each kernel against its plain version (and float64 numpy) on a few shapes
 around the fragment and block edges (the triangular kernels through
@@ -51,6 +58,15 @@ slices and warps a block (BUCKET_VARIANTS); ``dissect`` cuts up the
 parent commit's row-panel kernels or the staged ones, whichever the
 checkout holds (BUCKET_CUTS: each launch, the copies, each product, the
 contraction's loads and tile sums, the stores).
+For ``cholinv``: ``check`` holds the kernel to its plain version and
+numpy (chip_smoke.pallas_check) at TRI_CHECK_N and around its
+shared-memory limit (CHOLINV_CHECK_N), for 1 and 5 matrices and on two
+ill-conditioned stacks, beside the cholesky -> tril_inverse kernel pair's
+error; ``phases cholinv`` times it, the parent's kernel, the kernel pair
+and the library pair (cholesky_ex -> solve_triangular) at CHOLINV_TIMED;
+``variants`` a cluster of two blocks a matrix (CHOLINV_CLUSTER), other
+block sizes and nb = 32; ``dissect`` cuts out the X update, the factor, the copies and the
+stores (CHOLINV_CUTS; the parent's factor or inverse with PARENT_CSRC).
 ``phases`` runs ``chip_smoke.py``'s build and its ``df32_phase`` and
 ``pallas_kernel_phase`` (every shape those time, a few minutes); ``phases
 tri``, ``phases chol``, ``phases schur`` and ``phases bucket`` only the
@@ -71,6 +87,7 @@ import ctypes
 import re
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -113,19 +130,31 @@ CHOL_TIMED = [("cholesky", "cls_32 X/S", (32, 2), 65),
               ("cholesky", "mkp_10 Schur", (32,), 46),
               ("cholesky", "n=300", (4,), 300)]
 CHOL_CHECK_N = tuple(sorted(TRI_CHECK_N + (80, 81, 224, 225)))
+# the fused A -> L^-1's timed shapes: the float32 tiers' X/S stacks and
+# Schur factors at cls_32 B=32 and cls_64 B=8, mkp_10's X/S stack and n =
+# 300 (device memory); checked n: TRI_CHECK_N and both sides of its
+# shared-memory limit (np = 224)
+CHOLINV_TIMED = [("chol_inverse_lanes", "cls_32 X/S", (32, 2), 65),
+                 ("chol_inverse_lanes", "cls_32 Schur", (32,), 66),
+                 ("chol_inverse_lanes", "cls_64 X/S", (8, 2), 129),
+                 ("chol_inverse_lanes", "cls_64 Schur", (8,), 130),
+                 ("chol_inverse_lanes", "mkp_10 X/S", (32, 2), 10),
+                 ("chol_inverse_lanes", "n=300", (4,), 300)]
+CHOLINV_CHECK_N = tuple(sorted(TRI_CHECK_N + tuple(range(160, 167)) +
+                               (224, 225)))
 # the Schur solve's timed cases: labels of chip_smoke.FUSED_SHAPES
 SCHUR_TIMED = ("cls_32 B=32", "cls_64 B=8", "mkp_10 B=32", "F=420", "F=700")
 
 
-def compiled(name: str, tag: str, src: str) -> ctypes.CDLL:
-    """``src``, a changed copy of ``csrc/<name>.cu``, built into
-    ``build/variants/`` and loaded."""
+def compiled(name: str, tag: str, src: str, csrc=_build.CSRC) -> ctypes.CDLL:
+    """``src``, a changed copy of ``<csrc>/<name>.cu``, built against the
+    headers in ``csrc`` into ``build/variants/`` and loaded."""
     VARIANT_DIR.mkdir(parents=True, exist_ok=True)
     cu = VARIANT_DIR / f"{name}_{tag}.cu"
     so = VARIANT_DIR / f"lib{name}_{tag}.so"
     cu.write_text(src)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-o", str(so), str(cu)], check=True,
+                    str(csrc), "-o", str(so), str(cu)], check=True,
                    capture_output=True, text=True)
     return ctypes.CDLL(str(so))
 
@@ -142,18 +171,18 @@ def variant(name: str, tag: str, subs: dict) -> ctypes.CDLL:
     return compiled(name, tag, src)
 
 
-def cut(name: str, tag: str, *edits: tuple) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` with each (text, replacement[, count]) applied to
-    the ``count`` (default 1) places the text stands: a kernel with one part
-    taken out, to time what is left.  Its results are wrong by design; only
-    its time is read."""
-    src = (_build.CSRC / f"{name}.cu").read_text()
+def cut(name: str, tag: str, *edits: tuple, csrc=_build.CSRC) -> ctypes.CDLL:
+    """``<csrc>/<name>.cu`` with each (text, replacement[, count]) applied
+    to the ``count`` (default 1) places the text stands: a kernel with one
+    part taken out, to time what is left.  Its results are wrong by design;
+    only its time is read."""
+    src = (csrc / f"{name}.cu").read_text()
     for text, replacement, *count in edits:
         if src.count(text) != (count[0] if count else 1):
             raise KeyError(f"{name}.cu: {text!r} found {src.count(text)} "
                            "times")
         src = src.replace(text, replacement)
-    return compiled(name, tag, src)
+    return compiled(name, tag, src, csrc)
 
 
 # the cuts of dissect(): (text in the source, what takes its place)
@@ -213,6 +242,46 @@ CHOL_CUTS = {
                           "        const float4 pr"),
     "stores": ("      if (in_smem) O[(size_t)i * n + j]",
                "      if (in_smem && n < 0) O[(size_t)i * n + j]"),
+}
+# Parts of the fused A -> L^-1 cut out (for "factor": the row solves, the
+# trailing tiles and the look-ahead diagonal factors; the X part keeps the
+# first panel's L11), and of the parent commit's kernel (PARENT_CUTS: its
+# unblocked left-looking factor, then its inverse a thread a column)
+CHOLINV_CUTS = {
+    "return": ("  extern __shared__ __align__(16) float smem[];\n"
+               "  const float* A = in + (size_t)blockIdx.x * n * n;\n",
+               "  extern __shared__ __align__(16) float smem[];\n"
+               "  if (n > 0) return;\n"
+               "  const float* A = in + (size_t)blockIdx.x * n * n;\n"),
+    "copies": ("        if (W.smem) cp_async4(W.w + (size_t)r * W.ld + c, "
+               "A + (size_t)r * n + c);",
+               "        if (W.smem) W.w[(size_t)r * W.ld + c] = r == c ? n : 0.f;"),
+    "X update": (("      else col_solve(W, S, Xp, np, k0, t - nrows);",
+                  "      else if (n < 0) col_solve(W, S, Xp, np, k0, t - nrows);"),
+                 ("ntiles = na + T * (k1 / 4);",
+                  "ntiles = na + (n < 0 ? T * (k1 / 4) : 0);")),
+    "factor": (("      if (t < nrows) row_solve(W, S, P, nullptr, np, k0, k1 + t);",
+                "      if (t < nrows) {\n"
+                "        if (n < 0) row_solve(W, S, P, nullptr, np, k0, k1 + t);\n"
+                "      }"),
+               ("        diagonal_block(W, k1, S, nullptr, flag);",
+                "        if (n < 0) diagonal_block(W, k1, S, nullptr, flag);"),
+               ("        if (t < na) a_tile(W, P, np, k1, t);",
+                "        if (t < na) {\n"
+                "          if (n < 0) a_tile(W, P, np, k1, t);\n"
+                "        }")),
+    "look-ahead factor": ("        diagonal_block(W, k1, S, nullptr, flag);",
+                          "        if (n < 0) diagonal_block(W, k1, S, nullptr, flag);"),
+    "stores": ("      else if (W.smem) O[(size_t)i * n + j]",
+               "      else if (W.smem && n < 0) O[(size_t)i * n + j]"),
+}
+PARENT_CUTS = {
+    "return": ("                                    int in_smem) {\n",
+               "                                    int in_smem) {\n"
+               "  if (n > 0) return;\n"),
+    "factor": ("  const bool ok = tri::factor_lower(a, n, lda, col);",
+               "  const bool ok = true;"),
+    "inverse": ("  tri::invert_lower(a, lda, x, lda, n);", ""),
 }
 # Parts of the factor-quality Cholesky cut out.  Every copy, the whole one
 # too, loses its fall-back to the unblocked IEEE factorization
@@ -358,14 +427,17 @@ def tri_variant(lib: ctypes.CDLL, name: str, nb: int):
 
 def tri_case(name: str, lead: tuple, n: int, rng, scale: float = 0):
     """(args, float64 reference) of a triangular kernel: a positive definite
-    stack (chip_smoke.spd_stack) for the Cholesky kernels, its factor
-    rounded to float32 for ``tril_inverse``."""
+    stack (chip_smoke.spd_stack) for the Cholesky kernels and the fused
+    inverse, its factor rounded to float32 for ``tril_inverse``."""
     N = int(np.prod(lead))
     # without a scale, the call an earlier commit's chip_smoke.py takes
     A64 = cs.spd_stack(rng, N, n, scale) if scale else cs.spd_stack(rng, N, n)
     if name in ("cholesky_lanes", "cholesky"):
         A32 = A64.astype(np.float32)
         ref = np.linalg.cholesky(A32.astype(np.float64))
+    elif name == "chol_inverse_lanes":
+        A32 = A64.astype(np.float32)
+        ref = np.linalg.inv(np.linalg.cholesky(A32.astype(np.float64)))
     else:
         A32 = np.linalg.cholesky(A64).astype(np.float32)
         ref = np.linalg.inv(A32.astype(np.float64))
@@ -374,9 +446,12 @@ def tri_case(name: str, lead: tuple, n: int, rng, scale: float = 0):
 
 
 def library_call(name: str, n: int, device):
-    """The one PyTorch call computing a triangular kernel's function."""
+    """The one PyTorch call computing a triangular kernel's function (for
+    the fused inverse, the two: chip_smoke.library_pair)."""
     if name in ("cholesky_lanes", "cholesky"):
         return torch.linalg.cholesky_ex
+    if name == "chol_inverse_lanes":
+        return cs.library_pair
     eye = torch.eye(n, dtype=torch.float32, device=device)
     return lambda L: torch.linalg.solve_triangular(L, eye.expand(L.shape),
                                                    upper=False)
@@ -435,6 +510,104 @@ extern "C" int cholesky_ops_check(unsigned long long n,
 """
 
 
+# chol_inverse_lanes' variant with a thread-block cluster of two blocks a
+# matrix, built from csrc/chol_inverse_lanes.cu (its device functions; S2
+# and P2 are their second copies): rank 0 owns A and runs (a), (b), (c),
+# rank 1 owns X and runs (d1), (d2), a cluster barrier for each block
+# barrier; matrices whose buffer does not fit in shared memory take the
+# committed entry, here renamed
+CHOLINV_CLUSTER = r"""
+#include <cooperative_groups.h>
+
+#define chol_inverse_lanes_f32 chol_inverse_lanes_single_f32
+#include "chol_inverse_lanes.cu"
+#undef chol_inverse_lanes_f32
+
+namespace {
+namespace cg = cooperative_groups;
+
+// The blocks of rank 0 (A: (a), (b), (c)) and rank 1 (X: (d1), (d2)) of
+// a cluster take matrix blockIdx.x / 2, the buffer in shared memory in
+// each; rank 0 writes S, P and the flag into rank 1's shared memory as
+// well as its own.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(kThreads, 1)
+    chol_inverse_cluster_kernel(const float* __restrict__ in, float* out,
+                                int n, int np, int ld) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool owns_a = cluster.block_rank() == 0;
+  const size_t mat = blockIdx.x / 2;
+  const float* A = in + mat * n * n;
+  float* O = out + mat * n * n;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32;
+  const Buf W{smem, ld, np, true};
+  float* P = smem + (size_t)np * ld;
+  float* S = P + (size_t)kNB * np;
+  int* flag = reinterpret_cast<int*>(S + kNB * LDS);
+  float* P2 = owns_a ? cluster.map_shared_rank(P, 1) : nullptr;
+  float* S2 = owns_a ? cluster.map_shared_rank(S, 1) : nullptr;
+  int* flag2 = owns_a ? cluster.map_shared_rank(flag, 1) : flag;
+
+  if (tid == 0) *flag = 0;
+  cluster.sync();
+  if (owns_a) stage(A, O, W, n, np);
+  if (owns_a && warp == 0)
+    diagonal_block(Buf{const_cast<float*>(A), n, n, false}, 0, S, S2, flag2);
+  cp_async_wait_all();
+  cluster.sync();
+  for (int k0 = 0; k0 < np; k0 += kNB) {
+    const int k1 = k0 + kNB;
+    const int nrows = np - k1;
+    if (owns_a) {
+      for (int t = tid; t < nrows; t += nt)
+        row_solve(W, S, P, P2, np, k0, k1 + t);
+    } else {
+      for (int c = tid; c < k1; c += nt) col_solve(W, S, nullptr, np, k0, c);
+    }
+    cluster.sync();
+    const int T = nrows / 4;
+    const int na = T * (T + 1) / 2;
+    if (owns_a && warp == 0) {
+      if (k1 < np) {
+        diagonal_tiles_wait();
+        diagonal_block(W, k1, S, S2, flag2);
+      }
+    } else if (owns_a) {
+      if (tid - 32 < na) a_tile(W, P, np, k1, tid - 32);
+      if (warp == 1 && k1 < np) diagonal_tiles_arrive();
+      for (int t = tid - 32 + nt - 32; t < na; t += nt - 32)
+        a_tile(W, P, np, k1, t);
+    } else {
+      for (int t = tid; t < T * (k1 / 4); t += nt)
+        x_tile(W, P, nullptr, np, k0, k1, t);
+    }
+    cluster.sync();
+  }
+  if (!owns_a) write_out(O, W, n, *flag == 0);
+}
+}  // namespace
+
+extern "C" int chol_inverse_lanes_f32(const float* in, float* out,
+                                      long long nmat, int n, int npan,
+                                      void* stream) {
+  int max_smem = 0;
+  cudaError_t err = tri::smem_limit(&max_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int np = npan * kNB;
+  const int ld = tri::smem_ld(np);
+  const size_t smem = smem_floats(np, ld, true) * sizeof(float);
+  if (npan < 2 || (long long)(npan - 1) * kNB >= n || np < n ||
+      nmat >= (1LL << 30) || smem > (size_t)max_smem)
+    return chol_inverse_lanes_single_f32(in, out, nmat, n, npan, stream);
+  err = tri::smem_opt_in(chol_inverse_cluster_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  chol_inverse_cluster_kernel<<<(unsigned int)(2 * nmat), kThreads, smem,
+                                (cudaStream_t)stream>>>(in, out, n, np, ld);
+  return (int)cudaGetLastError();
+}
+"""
+
+
 def chol_ops_check(device) -> None:
     """cholesky.cu's branch-free sqrt_rn and div_rn against sqrtf and /,
     bit for bit, over OPS_CHECK's 124 * 2^23 cases of each."""
@@ -463,17 +636,23 @@ def tri_check(device, names=("cholesky_lanes", "tril_inverse")) -> None:
     ptxas_report(*names)
     rng = np.random.default_rng(5)
     for name in names:
-        worst = {}
-        ns = CHOL_CHECK_N if name == "cholesky" else TRI_CHECK_N
+        worst, pair = {}, {}
+        ns = {"cholesky": CHOL_CHECK_N,
+              "chol_inverse_lanes": CHOLINV_CHECK_N}.get(name, TRI_CHECK_N)
         cases = [(N, n, 0) for n in ns for N in (1, 5)]
         for N, n, scale in cases + [(4, 65, 4), (4, 129, 4)]:
             args, ref = tri_case(name, (N,), n, rng, scale)
-            _, err, err_ref = cs.pallas_check(
-                name, f"check ({N}, {n}) s={scale}", args, ref, N // 2)
-            rel = err_ref / float(np.abs(ref).max())
-            worst[f"{N}x{n}" + (" ill" if scale else "")] = rel
+            label = f"check ({N}, {n}) s={scale}"
+            _, err, err_ref = cs.pallas_check(name, label, args, ref, N // 2)
+            key = f"{N}x{n}" + (" ill" if scale else "")
+            worst[key] = err_ref / float(np.abs(ref).max())
+            if name == "chol_inverse_lanes" and scale:
+                pair[key] = {"abs_err": err_ref, "kernel_pair_abs_err": (
+                    cs.pair_entry(f"{label} ill-conditioned", args, ref,
+                                  err_ref)["kernel_pair_err_vs_numpy"])}
         cs.log("check", kernel=name, nan_own_matrix_only=True,
-               repeat_bit_for_bit=True, rel_err_vs_numpy=worst)
+               repeat_bit_for_bit=True, rel_err_vs_numpy=worst,
+               **({"vs_kernel_pair": pair} if pair else {}))
     if "cholesky_lanes" in names:
         for n in (10, 65, 300):
             cs.log("check", kernel="cholesky_lanes", n=n,
@@ -498,6 +677,7 @@ def tri_times(device, timed=TRI_TIMED) -> None:
 def tri_variants(device, timed=TRI_TIMED) -> None:
     rng = np.random.default_rng(7)
     settings = {   # a substituted constant (key=value) a copy
+        "chol_inverse_lanes": ["kThreads=256", "kThreads=1024", "kNB=32"],
         "tril_inverse": ["kThreads=64", "kThreads=256", "kNB=32"],
         "cholesky_lanes": ["kThreads=128", "kThreads=512", "kSmallThreads=64",
                            "kSmallThreads=256", "kNB=32"],
@@ -512,6 +692,10 @@ def tri_variants(device, timed=TRI_TIMED) -> None:
             lib = variant(name, key + value, {key: int(value)})
             nb = int(value) if key == "kNB" else kernels._TRI_NB
             calls[name][sub] = tri_variant(lib, name, nb)
+        if name == "chol_inverse_lanes":
+            calls[name]["cluster of 2"] = tri_variant(
+                compiled(name, "cluster", CHOLINV_CLUSTER), name,
+                kernels._TRI_NB)
     for name, label, lead, n in timed:
         args, ref = tri_case(name, lead, n, rng)
         fns = {"committed": getattr(kernels, name), **calls[name]}
@@ -549,6 +733,82 @@ def tri_dissect(device, groups=(("tril_inverse", TRINV_CUTS, TRI_TIMED),
                      for v in libs.values()), library_call(name, n, device)]
             cs.log("dissect", kernel=name, shape=label, lead=list(lead), n=n,
                    ms=dict(zip([*libs, "library"], cs.graph_times(fns, args))))
+
+
+def parent_cholinv(lib: ctypes.CDLL):
+    """The C entry of another checkout's ``chol_inverse_lanes.cu`` built
+    by ``compiled``/``cut`` (the parent design: a device-memory workspace
+    of A's size, allocated at each call as its wrapper did, and no panel
+    count)."""
+    fn = lib.chol_inverse_lanes_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(A):
+        out, work = torch.empty_like(A), torch.empty_like(A)
+        n = A.shape[-1]
+        err = fn(A.data_ptr(), out.data_ptr(), work.data_ptr(),
+                 A.numel() // (n * n), n,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent chol_inverse_lanes: CUDA error {err}")
+        return out
+    return call
+
+
+def parent_source(parent) -> ctypes.CDLL:
+    """``<parent>/chol_inverse_lanes.cu`` built as it stands."""
+    return cut("chol_inverse_lanes", "parent", csrc=parent)
+
+
+def cholinv_times(device, parent=None) -> None:
+    """chol_inverse_lanes, the parent's kernel (with ``parent``), the
+    cholesky -> tril_inverse kernel pair and the library pair at
+    CHOLINV_TIMED, device ms from CUDA graphs replayed in turns; each held
+    to numpy at the kernel's bar first."""
+    rng = np.random.default_rng(9)
+    fns = {"committed": kernels.chol_inverse_lanes}
+    if parent is not None:
+        fns = {"parent": parent_cholinv(parent_source(parent)), **fns}
+    fns.update(kernel_pair=cs.kernel_pair, library_pair=cs.library_pair)
+    for name, label, lead, n in CHOLINV_TIMED:
+        args, ref = tri_case(name, lead, n, rng)
+        errs = {}
+        for k, f in fns.items():
+            got = f(*args).double().cpu().numpy().reshape(ref.shape)
+            np.testing.assert_allclose(got, ref, rtol=3e-3, atol=3e-3,
+                                       err_msg=f"{k} {label}")
+            errs[k] = float(np.abs(got - ref).max())
+        ms = dict(zip(fns, cs.graph_times(list(fns.values()), args)))
+        cs.log("cholinv_times", shape=label, lead=list(lead), n=n, ms=ms,
+               max_abs_err_vs_numpy=errs,
+               **cs.kernel_bound(name, args, fns["committed"](*args)))
+
+
+def cholinv_dissect(device, parent=None) -> None:
+    """chol_inverse_lanes beside copies with parts cut out (CHOLINV_CUTS)
+    and, with ``parent``, the parent's kernel beside its cuts
+    (PARENT_CUTS), in turns, at CHOLINV_TIMED."""
+    rng = np.random.default_rng(10)
+    name = "chol_inverse_lanes"
+    calls = {"whole": tri_variant(cut(name, "whole"), name, kernels._TRI_NB)}
+    for part, edit in CHOLINV_CUTS.items():
+        edits = edit if isinstance(edit[0], tuple) else (edit,)
+        lib = cut(name, part.replace(" ", "_"), *edits)
+        calls["empty launch" if part == "return" else f"no {part}"] = (
+            tri_variant(lib, name, kernels._TRI_NB))
+    if parent is not None:
+        calls["parent"] = parent_cholinv(parent_source(parent))
+        for part, edit in PARENT_CUTS.items():
+            lib = cut(name, f"parent_{part}", edit, csrc=parent)
+            calls["parent empty launch" if part == "return"
+                  else f"parent no {part}"] = parent_cholinv(lib)
+    for _, label, lead, n in CHOLINV_TIMED:
+        args, _ = tri_case(name, lead, n, rng)
+        cs.log("dissect", kernel=name, shape=label, lead=list(lead), n=n,
+               ms=dict(zip(calls, cs.graph_times(list(calls.values()),
+                                                 args))))
 
 
 def schur_caller(lib: ctypes.CDLL, plan=None):
@@ -1155,6 +1415,7 @@ def main() -> int:
     cs.log("env", card=cs.card_line(), torch=torch.__version__)
     mode = sys.argv[1] if len(sys.argv) > 1 else "check"
     which = sys.argv[2] if len(sys.argv) > 2 else "all"
+    parent = Path(sys.argv[3]).resolve() if len(sys.argv) > 3 else None
     if mode == "reference":   # the fused route on the CPU-reference case
         schur_reference(device)
         return 0
@@ -1168,6 +1429,8 @@ def main() -> int:
             schur_times(device)
         elif which == "bucket":
             bucket_times(device)
+        elif which == "cholinv":
+            cholinv_times(device, parent)
         else:
             cs.df32_phase(device)
             cs.pallas_kernel_phase(device)
@@ -1205,6 +1468,12 @@ def main() -> int:
             bucket_variants(device)
         if mode == "dissect":
             bucket_dissect(device)
+    if which in ("all", "cholinv"):
+        tri_check(device, ("chol_inverse_lanes",))
+        if mode == "variants":
+            tri_variants(device, CHOLINV_TIMED)
+        if mode == "dissect":
+            cholinv_dissect(device, parent)
     return 0
 
 

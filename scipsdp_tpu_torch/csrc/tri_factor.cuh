@@ -1,8 +1,9 @@
-// Device code shared by cholesky.cu, tril_inverse.cu and
-// chol_inverse_lanes.cu: the left-looking Cholesky factorization and the
-// forward-substitution inverse of ONE float32 matrix, each run by all the
-// threads of one block.  Every sum is taken in a fixed order (no atomics),
-// so two launches give the same bits.
+// Device code shared by the float32 triangular kernels (cholesky_lanes.cu,
+// cholesky.cu, tril_inverse.cu, chol_inverse_lanes.cu): the padded row
+// stride, the shared-memory opt-in, and the left-looking Cholesky
+// factorization of ONE float32 matrix run by all the threads of one block
+// (cholesky.cu's fall-back).  Every sum is taken in a fixed order (no
+// atomics), so two launches give the same bits.
 
 #pragma once
 
@@ -18,8 +19,7 @@ constexpr int kLanes = 4;
 
 // Row stride of a matrix staged in shared memory: a multiple of 32 plus 4.
 // In the factorization the 8 rows x 4 lanes of a warp then read 32
-// distinct banks; in the inverse, thread j reads X[k][j] at k = j + s, a
-// stride of ld + 1 (odd) across the warp: distinct banks again.
+// distinct banks, and so do 8 threads' float4 reads of 8 rows.
 __host__ __device__ inline int smem_ld(int n) { return ((n + 31) / 32) * 32 + 4; }
 
 __device__ inline float qnan() { return __int_as_float(0x7fffffff); }
@@ -66,26 +66,6 @@ __device__ inline bool factor_lower(float* a, int n, int ld, float* col) {
   return ok;
 }
 
-// X = L^-1 for the lower-triangular n x n matrix L (row stride ldl; only
-// its lower triangle is read) into X (row stride ldx), zeros above the
-// diagonal.  Thread j solves L x = e_j for its columns j, rows in order:
-//   X[i][j] = (delta_ij - sum_{j<=k<i} L[i][k] X[k][j]) / L[i][i].
-// A thread reads only its own columns of X, so no barrier is needed; the
-// caller synchronizes before X is read by other threads.  A NaN in L
-// reaches that matrix's X only.
-__device__ inline void invert_lower(const float* L, int ldl, float* X,
-                                    int ldx, int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    for (int i = 0; i < j; ++i) X[(size_t)i * ldx + j] = 0.f;
-    for (int i = j; i < n; ++i) {
-      const float* li = L + (size_t)i * ldl;
-      float s = (i == j) ? 1.f : 0.f;
-      for (int k = j; k < i; ++k) s = fmaf(-li[k], X[(size_t)k * ldx + j], s);
-      X[(size_t)i * ldx + j] = s / li[i];
-    }
-  }
-}
-
 // Copy the lower triangle of the n x n row-major matrix ``src`` into
 // ``dst`` (row stride ld).
 __device__ inline void stage_lower(const float* __restrict__ src, float* dst,
@@ -95,20 +75,6 @@ __device__ inline void stage_lower(const float* __restrict__ src, float* dst,
     const int i = (int)(t / n);
     const int j = (int)(t - (size_t)i * n);
     if (j <= i) dst[(size_t)i * ld + j] = src[t];
-  }
-}
-
-// Write the n x n row-major output: the lower triangle of ``src`` (row
-// stride ld; NaN instead where ``ok`` is false) and exact zeros above the
-// diagonal.  ``src`` may be ``dst`` itself (ld = n): each element is read
-// and written by one thread.
-__device__ inline void write_lower(const float* src, int ld, float* dst,
-                                   int n, bool ok) {
-  const size_t nn = (size_t)n * n;
-  for (size_t t = threadIdx.x; t < nn; t += blockDim.x) {
-    const int i = (int)(t / n);
-    const int j = (int)(t - (size_t)i * n);
-    dst[t] = j <= i ? (ok ? src[(size_t)i * ld + j] : qnan()) : 0.f;
   }
 }
 

@@ -34,7 +34,7 @@ _ARGTYPES = {   # of each C entry point <name>_f32, the stream last
     "cholesky_lanes": (_P, _P, _LL, _I, _I, _P),
     "cholesky": (_P, _P, _LL, _I, _I, _P),
     "tril_inverse": (_P, _P, _LL, _I, _I, _P),
-    "chol_inverse_lanes": (_P, _P, _P, _LL, _I, _P),
+    "chol_inverse_lanes": (_P, _P, _LL, _I, _I, _P),
     "schur_wwt": (_P, _P, _P, _I, _I, _LL, _I, _I, _P),
 }
 # Schur Gram (csrc/schur_wwt.cu): rows in panels of _GRAM_PANEL, one block
@@ -48,16 +48,17 @@ _GRAM_SLAB = 32
 _GRAM_BLOCKS = 1056
 _GRAM_MIN_CHUNK = 128
 # Blocked triangular kernels (csrc/cholesky_lanes.cu, csrc/cholesky.cu,
-# csrc/tril_inverse.cu): columns in blocks of _TRI_NB, the Cholesky
-# factors' panels and the triangular inverse's block columns (one thread
-# block per matrix and block column); the sources' kNB, which their C entry
-# points check the block count against
+# csrc/tril_inverse.cu, csrc/chol_inverse_lanes.cu): columns in blocks of
+# _TRI_NB, the Cholesky factors' panels and the triangular inverse's block
+# columns (one thread block per matrix and block column); the sources' kNB,
+# which their C entry points check the block count against
 _TRI_NB = 16
 
 
 def tri_blocks(n: int) -> tuple:
-    """(nb, nblk) of :func:`cholesky_lanes`'s and :func:`cholesky`'s panels
-    and :func:`tril_inverse`'s block columns for matrices of size n: blocks of
+    """(nb, nblk) of :func:`cholesky_lanes`'s, :func:`cholesky`'s and
+    :func:`chol_inverse_lanes`' panels and :func:`tril_inverse`'s block
+    columns for matrices of size n: blocks of
     nb columns, the last one non-empty, together covering n.  The kernels
     take nblk; nb is fixed in their sources."""
     return _TRI_NB, max(1, -(-n // _TRI_NB))
@@ -111,7 +112,7 @@ def cholesky_lanes(A: torch.Tensor) -> torch.Tensor:
                          f"{tuple(A.shape)}")
     if not A.is_contiguous():
         raise ValueError("cholesky_lanes: input must be contiguous")
-    return _per_matrix(cholesky_lanes, A, blocked=True)
+    return _per_matrix(cholesky_lanes, A)
 
 
 def _on_cpu(name: str, A: torch.Tensor, square: bool = True) -> bool:
@@ -129,12 +130,10 @@ def _on_cpu(name: str, A: torch.Tensor, square: bool = True) -> bool:
     return False
 
 
-def _per_matrix(wrapper, A: torch.Tensor, workspace: bool = False,
-                blocked: bool = False):
-    """Launch a per-matrix kernel on the stack ``A`` (..., n, n) into a new
-    tensor of its shape; counts the launch on ``wrapper``.  ``workspace``:
-    the kernel also takes a scratch stack of A's size; ``blocked``: it also
-    takes :func:`tri_blocks`' block count nblk."""
+def _per_matrix(wrapper, A: torch.Tensor):
+    """Launch a per-matrix blocked kernel on the stack ``A`` (..., n, n)
+    into a new tensor of its shape, with :func:`tri_blocks`' block count
+    nblk; counts the launch on ``wrapper``."""
     name = wrapper.__name__
     A = A.contiguous()
     out = torch.empty_like(A)
@@ -142,14 +141,11 @@ def _per_matrix(wrapper, A: torch.Tensor, workspace: bool = False,
     nmat = A.numel() // (n * n) if n else 0
     if nmat == 0:
         return out
-    split = tri_blocks(n)[1:] if blocked else ()
-    if nmat * (split[0] if blocked else 1) >= 2**31:
+    nblk = tri_blocks(n)[1]
+    if nmat * nblk >= 2**31:
         raise ValueError(f"{name}: {nmat} matrices exceed one grid")
-    ptrs = [A.data_ptr(), out.data_ptr()]
-    if workspace:   # freed after the launch: the allocator orders reuse
-        ptrs.append(torch.empty_like(A).data_ptr())   # on this stream
-    _build.launch(name, _ARGTYPES[name], A.device, *ptrs, nmat, n, *split,
-                  entry=f"{name}_f32")
+    _build.launch(name, _ARGTYPES[name], A.device, A.data_ptr(),
+                  out.data_ptr(), nmat, n, nblk, entry=f"{name}_f32")
     wrapper.launches += 1
     return out
 
@@ -168,7 +164,7 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
     """
     if _on_cpu("cholesky", A):
         return cholesky_plain(A)
-    return _per_matrix(cholesky, A, blocked=True)
+    return _per_matrix(cholesky, A)
 
 
 def tril_inverse(L: torch.Tensor) -> torch.Tensor:
@@ -182,20 +178,23 @@ def tril_inverse(L: torch.Tensor) -> torch.Tensor:
     """
     if _on_cpu("tril_inverse", L):
         return tril_inverse_plain(L)
-    return _per_matrix(tril_inverse, L, blocked=True)
+    return _per_matrix(tril_inverse, L)
 
 
 def chol_inverse_lanes(A: torch.Tensor) -> torch.Tensor:
     """``L^-1`` with ``A = L L^T`` of a stack of float32 matrices
-    (..., n, n) in one launch; a matrix that is not positive definite
-    comes back NaN on and below its diagonal.
+    (..., n, n), read from the lower triangle, in one launch, exactly lower
+    triangular; a matrix that is not positive definite comes back NaN on
+    and below its diagonal and touches no other matrix.
 
-    CUDA: ``csrc/chol_inverse_lanes.cu``.  CPU:
+    CUDA: ``csrc/chol_inverse_lanes.cu``, blocked right-looking in panels
+    of :func:`tri_blocks`' nb columns with the inverse carried along, one
+    thread block per matrix (one group of nb lanes for n <= nb).  CPU:
     :func:`chol_inverse_lanes_plain`.
     """
     if _on_cpu("chol_inverse_lanes", A):
         return chol_inverse_lanes_plain(A)
-    return _per_matrix(chol_inverse_lanes, A, workspace=True)
+    return _per_matrix(chol_inverse_lanes, A)
 
 
 def gram_panels(mp: int) -> int:

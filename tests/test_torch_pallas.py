@@ -453,6 +453,140 @@ def test_cholesky_panel_arithmetic_meets_the_bar(case):
         assert np.abs(E - other).max() / scale < 1e-4
 
 
+def _fma_t(a, b, c):
+    """fmaf in float32 on torch tensors, as _fma32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _cholinv_panels(A):
+    """torch emulation of csrc/chol_inverse_lanes.cu in float32 at
+    ``kernels.tri_blocks``' split: the stack padded to whole panels of nb
+    with an identity tail and X = I carried along; per panel (a) the
+    diagonal block column by column (rs = 1/sqrt(c), here correctly
+    rounded, where the kernel's is within an ulp; l = a * rs; fmaf updates
+    inside the block), (b) the rows below, l_q = (a_q - sum_{t<q} l_t
+    L11[q][t]) * rs_q, (d1) X's panel rows over the columns < k1, x_q =
+    (x_q - sum_{t<q} L11[q][t] x_t) * rs_q, (c) the trailing part and (d2)
+    X's rows below (zero in the columns from k0 on) minus the panel's sums,
+    each taken from zero by fmaf in column order.  A matrix with a pivot
+    that is not a
+    positive normal float comes back NaN on and below its diagonal.  Only
+    the lower triangle of A is read."""
+    A = torch.as_tensor(A, dtype=torch.float32)
+    N, n, _ = A.shape
+    nb, npan = kernels.tri_blocks(n)
+    npd = nb * npan
+    tail = torch.arange(n, npd)
+    W = torch.zeros((N, npd, npd), dtype=torch.float32)
+    W[:, :n, :n] = torch.tril(A)
+    W[:, tail, tail] = 1.0
+    X = torch.eye(npd, dtype=torch.float32).repeat(N, 1, 1)
+    ok = torch.ones(N, dtype=torch.bool)
+    tiny = torch.finfo(torch.float32).tiny
+    for k0 in range(0, npd, nb):
+        k1 = k0 + nb
+        S = torch.tril(W[:, k0:k1, k0:k1])                 # (a)
+        for q in range(nb):
+            c = S[:, q, q].clone()
+            good = (c >= tiny) & (c <= torch.finfo(torch.float32).max)
+            ok &= good
+            rs = torch.where(good, 1.0 / c.double().sqrt(),
+                             float("nan")).float()
+            lq = S[:, q + 1:, q] * rs[:, None]
+            S[:, q, q] = rs
+            S[:, q + 1:, q] = lq
+            S[:, q + 1:, q + 1:] = _fma_t(-lq[:, :, None], lq[:, None, :],
+                                          S[:, q + 1:, q + 1:])
+        S = torch.tril(S)
+        rows = W[:, k1:, k0:k1].clone()                    # (b)
+        Xp = X[:, k0:k1, :k1].clone()                      # (d1)
+        for q in range(nb):
+            s, x = rows[:, :, q], Xp[:, q, :]
+            for t in range(q):
+                s = _fma_t(-rows[:, :, t], S[:, q, t][:, None], s)
+                x = _fma_t(-S[:, q, t][:, None], Xp[:, t, :], x)
+            rows[:, :, q] = s * S[:, q, q][:, None]
+            Xp[:, q, :] = x * S[:, q, q][:, None]
+        X[:, k0:k1, :k1] = Xp
+        sa = torch.zeros_like(W[:, k1:, k1:])              # (c), (d2)
+        sx = torch.zeros_like(X[:, k1:, :k1])
+        for k in range(nb):
+            p = rows[:, :, k]
+            sa = _fma_t(p[:, :, None], p[:, None, :], sa)
+            sx = _fma_t(p[:, :, None], Xp[:, k, :][:, None, :], sx)
+        W[:, k1:, k1:] -= sa
+        X[:, k1:, :k1] -= sx
+    X = torch.tril(X[:, :n, :n])
+    lower = torch.ones(n, n, dtype=torch.bool).tril()
+    nan = torch.full_like(X, float("nan"))
+    return torch.where(ok[:, None, None] | ~lower, X, nan).numpy()
+
+
+def _err(X, ref):
+    return float(np.abs(X.astype(np.float64) - ref).max())
+
+
+@pytest.mark.parametrize("case", ["n=5", "n=16", "n=17", "n=43", "n=65",
+                                  "n=129", "ill-conditioned", "not PD"])
+def test_chol_inverse_panel_arithmetic_meets_the_bar(case):
+    """The fused CUDA kernel's arithmetic (panels of tri_blocks' nb with X
+    carried along), emulated in float32: within tests/test_lanes_chol.py's
+    bar (3e-3, 3e-3) of float64 numpy's inv(cholesky(A)) and of the JAX
+    kernel in interpret mode, exact zeros above the diagonal, on ragged n
+    and on both sides of the panel width.  On an IPM-like ill-conditioned
+    stack (rows and columns scaled by e^U(-4, 4)) its error from numpy is
+    at most twice the plain cholesky -> tril_inverse pair's and below the
+    emulated cholesky.cu -> tril_inverse.cu pair's.  A matrix of a
+    stack that is not positive definite comes back NaN on and below its
+    diagonal, zeros above, in the emulation and in JAX, and leaves the
+    others' bits alone."""
+    rng = np.random.default_rng(11)
+    n = {"ill-conditioned": 129, "not PD": 65}.get(case) or int(case[2:])
+    N = 3
+    A64 = _spd_lanes(np.random.RandomState(n), N, n)
+    if case == "ill-conditioned":
+        d = np.exp(rng.uniform(-4, 4, (N, n)))
+        A64 = d[:, :, None] * A64 * d[:, None, :]
+    A = A64.astype(np.float32)
+    X = _cholinv_panels(A)
+    if case == "not PD":
+        bad = A.copy()
+        bad[1] -= np.float32(4 * n) * np.eye(n, dtype=np.float32)
+        Xb = _cholinv_panels(bad)
+        jx = np.asarray(jpk.chol_inverse_lanes(jnp.asarray(bad),
+                                               interpret=True))
+        lower = np.tri(n, dtype=bool)
+        assert np.isnan(Xb[1][lower]).all() and (Xb[1][~lower] == 0).all()
+        np.testing.assert_array_equal(Xb[[0, 2]], X[[0, 2]])
+        assert np.isnan(jx[1]).any()
+        assert np.isfinite(jx[[0, 2]]).all() and np.isfinite(Xb[[0, 2]]).all()
+        return
+    assert (np.triu(X, 1) == 0).all() and np.isfinite(X).all()
+    ref = np.linalg.inv(np.linalg.cholesky(A.astype(np.float64)))
+    np.testing.assert_allclose(X, ref, rtol=3e-3, atol=3e-3)
+    if case == "ill-conditioned":
+        pair = kernels.tril_inverse_plain(
+            kernels.cholesky_plain(torch.as_tensor(A))).numpy()
+        kernel_pair = _trinv_blocked(_chol_panels(A))
+        assert _err(X, ref) <= 2 * _err(pair, ref)
+        assert _err(X, ref) < _err(kernel_pair, ref)
+        return
+    jx = np.asarray(jpk.chol_inverse_lanes(jnp.asarray(A), interpret=True))
+    np.testing.assert_allclose(X, jx, rtol=3e-3, atol=3e-3)
+
+
+def test_chol_inverse_block_width_is_tri_blocks():
+    """chol_inverse_lanes.cu's panel width is tri_blocks' nb (its one kNB)
+    and its C entry point takes the panel count as the other blocked
+    kernels do, with no workspace."""
+    src = (_build.CSRC / "chol_inverse_lanes.cu").read_text()
+    assert re.findall(r"constexpr int kNB = (\d+);", src) == [
+        str(kernels.tri_blocks(1)[0])]
+    assert kernels._ARGTYPES["chol_inverse_lanes"] == kernels._ARGTYPES[
+        "cholesky"]
+    assert re.search(r"smem_ld\(", src) and "invert_lower" not in src
+
+
 # tests/test_lanes_chol.py's and the solver's n, around the block width
 @pytest.mark.parametrize("n", [1, 5, 10, 15, 16, 17, 32, 33, 43, 46, 65, 66,
                                129, 130, 300])
