@@ -15,7 +15,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    include the host's launch cost; and as device time, the LAUNCHES calls
    replayed from one CUDA graph), beside the one PyTorch library call
    that computes the same function where there is one (``library_ms``;
-   the port never calls it) and the least
+   the port never calls it; for the df32 contractions the float64
+   ``torch.einsum`` on operands made float64 outside the timing) and the
+   least
    time the card could take for the work (``bound_ms``: bytes over 3.35
    TB/s or FLOPs over 67 TFLOP/s, whichever is larger; ``schur_wwt``'s
    three TF32 products per multiply-add over 495 TFLOP/s):
@@ -78,6 +80,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    solve_batch of each (device busy, launches, host syncs); and a small
    CLS instance with the same kinds of boxes through the ladder on the
    card and on the CPU (equal statuses, objvals within 2 * gaptol).
+   Then the branch-and-bound (``core/branchbound.py::solve_misdp``, the
+   bb path): a small CLS (10 features) solved on the card and on the CPU
+   (the same status, objectives within 1e-4 relative; both node counts
+   logged), then ``bench_families.py``'s cls_32 at B=32, default settings
+   and its node cap of 4000 on the card: OPTIMAL, the objective within
+   1e-4 relative of the optimum BENCH_FAM_CLS32.json records for the JAX
+   package (BB_OPTIMUM), the incumbent feasible by an independent numpy
+   check (each block's smallest eigenvalue, the LP rows, the bounds and
+   integrality within the settings' feastol), the probe kernel launched;
+   nodes, batches, IPM iterations, wall, the time inside ``solve_batch``,
+   nodes/s, the node store (native or Python heap) are logged, and one
+   profiled run of the same solve gives device busy time and host syncs
+   per batch.
 5. refine path: the same four requests with phase32="refine" (the
    non-fused direction, probe rule, probe kernel): every request must
    launch the probe kernel and the three df32 kernels.  A direct request
@@ -121,8 +136,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    take two thirds of the run).
 
 The kernel launch counters are set to 0 just before each path (float64,
-sdpi, refine, fused, on_pallas, refine_pallas, lite_pallas) and read just
-after.  The line before the
+sdpi, bb, refine, fused, on_pallas, refine_pallas, lite_pallas) and read
+just after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
@@ -145,9 +160,11 @@ import torch
 
 from scipsdp_tpu_torch import _build
 from scipsdp_tpu_torch.core import sdpi as sdpi_module
+from scipsdp_tpu_torch.core.branchbound import solve_misdp
 from scipsdp_tpu_torch.core.sdpi import SDPInterface
 from scipsdp_tpu_torch.models.families import cardinality_least_squares
 from scipsdp_tpu_torch.models.problem import densify
+from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
 from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
@@ -630,11 +647,23 @@ def bmm64_edge_phase(device) -> None:
         repeat_bit_for_bit=True)
 
 
+def einsum64(name, args):
+    """The one PyTorch call that computes a df32 contraction: a float64
+    ``torch.einsum`` (the plain version's product) on the operands made
+    float64 beforehand, outside the timing.  The call ignores its
+    arguments, so the timers can pass the kernel's."""
+    M, v = (a.to(torch.float64) for a in args)
+    out = "gf" if name == "contract_short64" else "gj"
+    inner = "gj" if name == "contract_short64" else "gf"
+    spec = f"{'jf' if M.dim() == 2 else 'gjf'},{inner}->{out}"
+    return lambda *_: torch.einsum(spec, M, v)
+
+
 def df32_phase(device) -> dict:
     """Check and time the three df32 kernels against their plain
-    versions, and ``bmm64`` against ``torch.matmul`` (the contractions mix
-    float32 and float64 operands: no one library call computes them);
-    returns the main-path entry of each."""
+    versions, ``bmm64`` against ``torch.matmul`` and the contractions
+    against their float64 ``torch.einsum`` (einsum64); returns the
+    main-path entry of each."""
     out = {}
     bmm64_edge_phase(device)
     for name, label, args in df32_cases(device):
@@ -648,9 +677,10 @@ def df32_phase(device) -> dict:
                 raise AssertionError(f"{name} {label}: upcast before the "
                                      f"launch: {ops}")
         fns = [wrapper, PLAIN[name]]
-        lib = name == "bmm64" and args[1].dtype == torch.float64
+        lib = name != "bmm64" or args[1].dtype == torch.float64
         if lib:
-            fns.append(torch.matmul)
+            fns.append(torch.matmul if name == "bmm64"
+                       else einsum64(name, args))
         t, tp, *tl = graph_times(fns, args)
         te, tpe, *tle = eager_times(fns, args)
         log("kernel", name=name, shape=label,
@@ -1479,6 +1509,143 @@ def sdpi_cpu_reference(device, settings) -> None:
         cpu_nsolves=ref.nsolves, max_rel_objval=float(dev.max()))
 
 
+# the bb path: bench_families.py's production-size cls_32 at its batch of
+# 32 and node cap (NODE_CAPS), held to the optimum BENCH_FAM_CLS32.json
+# records for the JAX package; a small CLS on the card against the CPU
+BB_INSTANCE = (32, 64, 8, 5)       # nfeatures, nsamples, k, seed
+BB_BATCH = 32
+BB_NODE_CAP = 4000
+BB_OPTIMUM = 0.8340659474849534
+BB_SMALL = (10, 20, 3, 1)
+BB_REL = 1e-4
+
+
+def incumbent_violation(prob, y: np.ndarray) -> dict:
+    """Independent numpy check of a solution of ``prob`` (the problem as
+    given, before presolve): -lambda_min of each block's Z(y) built from
+    its sparse triples, and the worst violation of the LP rows, of the
+    bounds and of integrality."""
+    eig = -np.inf
+    for blk in prob.blocks:
+        Z = np.zeros((blk.size, blk.size))
+        np.add.at(Z, (blk.row, blk.col), blk.val * y[blk.var])
+        np.add.at(Z, (blk.const_row, blk.const_col), -blk.const_val)
+        Z = Z + np.tril(Z, -1).T          # the triples hold the lower part
+        eig = max(eig, -float(np.linalg.eigvalsh(Z)[0]))
+    act = prob.lp.dense(prob.nvars) @ y
+    lhs, rhs = prob.lp.lhs, prob.lp.rhs
+    rows = np.concatenate([np.where(lhs > -1e19, lhs - act, 0.0),
+                           np.where(rhs < 1e19, act - rhs, 0.0), [0.0]])
+    ints = y[prob.integral]
+    return {"psd": eig, "lp_rows": float(rows.max()),
+            "bounds": float(max(np.max(prob.lb - y), np.max(y - prob.ub))),
+            "integrality": float(np.max(np.abs(ints - np.round(ints)),
+                                        initial=0.0))}
+
+
+def bb_summary(res, wall) -> dict:
+    st = res.stats
+    return {"status": res.status.name, "objval": res.objval,
+            "dual_bound": res.dual_bound, "nodes": st.nodes,
+            "relax_solves": st.relax_solves,
+            "ipm_iterations": st.ipm_iterations,
+            "solver_calls": st.solver_calls, "npenalty": st.npenalty,
+            "nunsolved": st.nunsolved, "heur_found": st.heur_found,
+            "nnogoods": st.nnogoods, "wall_s": wall,
+            "solve_time_s": st.solve_time,
+            "host_share_of_wall": 1.0 - st.solve_time / wall,
+            "nodes_per_s": st.nodes / wall}
+
+
+def bb_phase(card: str) -> dict:
+    """The B&B (``core/branchbound.py::solve_misdp``) on the card.  A small
+    CLS solved on the card and on the CPU: the same status and optimum
+    within BB_REL.  Then cls_32 at B=32, default settings and the node
+    cap, with every launch counter set to 0 just before and read just
+    after: OPTIMAL, the objective within BB_REL of BB_OPTIMUM, the
+    incumbent feasible by incumbent_violation at the settings' feastol,
+    the probe kernel launched.  Then tree_profile of the same solve
+    (device busy, launches, host syncs per batch).  Returns the counts."""
+    small = cardinality_least_squares(*BB_SMALL[:3], seed=BB_SMALL[3])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[dev] = solve_misdp(small, device=dev)
+        res[dev] = bb_summary(res[dev], time.perf_counter() - t0)
+    ref, out = res["cpu"], res["cuda"]
+    if out["status"] != ref["status"] or abs(
+            out["objval"] - ref["objval"]) > BB_REL * abs(ref["objval"]):
+        raise AssertionError(f"bb small CLS: {out} on the card, {ref} on "
+                             f"the CPU")
+    log("bb_cpu_reference", instance="cls_10x20", card=out, cpu=ref)
+
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    settings = Settings(bb=dataclasses.replace(
+        Settings().bb, batch_size=BB_BATCH, node_limit=BB_NODE_CAP))
+
+    def run():
+        return solve_misdp(prob, settings)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    summary = bb_summary(out, wall)
+    if out.status.name != "OPTIMAL" or abs(
+            out.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+        raise AssertionError(f"bb cls_32: {summary}, want OPTIMAL at "
+                             f"{BB_OPTIMUM}")
+    viol = incumbent_violation(prob, out.best_y)
+    feastol = settings.bb.feastol
+    if not all(v <= feastol for v in viol.values()):
+        raise AssertionError(f"bb cls_32: incumbent infeasible: {viol}")
+    if launches["cholesky_lanes"] == 0:
+        raise AssertionError("bb cls_32: cholesky_lanes not launched")
+    prof = tree_profile(run)
+    log("bb_solve", instance="cls_32", batch=BB_BATCH, node_cap=BB_NODE_CAP,
+        card=card, node_store=("native" if FrontierStore(1).native
+                               else "python"),
+        **summary, rel_err_vs_jax_optimum=abs(out.objval - BB_OPTIMUM)
+        / BB_OPTIMUM, incumbent_violation=viol, launches=launches,
+        cholesky_lanes_per_batch=launches["cholesky_lanes"]
+        / out.stats.relax_solves,
+        host_syncs_per_batch=prof["host_syncs"] / out.stats.relax_solves,
+        device_idle_share=1.0 - 1e-6 * prof["device_busy_us"] / wall,
+        **prof)
+    return launches
+
+
+def tree_profile(fn) -> dict:
+    """Device busy time and host syncs of one B&B solve: one call under
+    torch.profiler with CUDA activity only (the tree launches ~150,000
+    kernels; CPU op events as well took minutes to aggregate) and one in
+    CUDA sync debug mode (host syncs by the Python line that synced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in kern)
+    aggregate = time.perf_counter() - t0 - wall
+    syncs = sync_sites(fn)
+    return {"profiled_wall_s": wall, "profile_aggregate_s": aggregate,
+            "device_busy_us": busy,
+            "kernel_launches": sum(e.count for e in kern),
+            "host_syncs": len(syncs),
+            "sync_sites": sorted(collections.Counter(syncs).items())}
+
+
 def bounds_agree(label, out, ref, gaptol, what) -> tuple:
     """Slots OPTIMAL in both solves bound within 2 * gaptol * (1 + |dobj|);
     every slot of ``out`` is OPTIMAL or FAILED (no bound: the JAX package
@@ -1723,6 +1890,18 @@ def cpu_reference(device, routes, bars) -> None:
             iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
 
+def sync_sites(fn) -> list:
+    """The Python line of each host sync in one call of ``fn`` (CUDA sync
+    debug mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchronizing CUDA operation" in str(w.message)]
+
+
 def device_profile(fn) -> tuple:
     """(output, profile) of ``fn``: one call under torch.profiler (its
     wall, device busy time, kernel launches, the ops and kernels with the
@@ -1746,13 +1925,7 @@ def device_profile(fn) -> tuple:
     evts = sorted(prof.key_averages(), key=dev_us, reverse=True)
     kern = [e for e in evts if e.device_type == DeviceType.CUDA]
     ops = [e for e in evts if e.device_type != DeviceType.CUDA]
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        fn()
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
-             if "synchronizing CUDA operation" in str(w.message)]
+    syncs = sync_sites(fn)
     return out, {
         "profiled_wall_s": wall, "device_busy_us": sum(map(dev_us, kern)),
         "kernel_launches": sum(e.count for e in kern),
@@ -1811,6 +1984,7 @@ def main() -> int:
     paths["f64"], f64_outs = f64_phase(cases, settings)
     paths["sdpi"] = sdpi_phase(cases[0], settings, f64_outs[0], device)
     sdpi_cpu_reference(device, settings)
+    paths["bb"] = bb_phase(card)
     paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
     paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
     paths.update(pallas_phase(cases, pallas, f64_outs))

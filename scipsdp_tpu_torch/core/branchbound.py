@@ -1,0 +1,1069 @@
+"""Vectorized branch-and-bound for MISDPs (PyTorch).
+
+Counterpart of ``scipsdp_tpu/core/branchbound.py``: the tree loop that SCIP
+provides for the reference.  A *host-side* best-first frontier (the
+reference's re-defaulted node selection, scipsdpdefplugins.c:152-158 —
+best-first because SDP warmstarts are weak) and *device-side batched*
+relaxation solves of many open nodes per step through the recovery ladder
+of ``core/sdpi.py``.
+
+Plugin roles folded in, as in the JAX package:
+
+* fracround / randomized rounding heuristics (heur_sdpfracround.c,
+  heur_sdprand.c) — rounded and checked on the device inside the direct
+  rung of every batched solve;
+* indicator constraints — bound propagation at node creation + enforcement
+  branching (reader_sdpa.c:1195-1252 translation);
+* rank-1 constraints — eigenvalue check (isMatrixRankOne, cons_sdp.c:733)
+  with secant/McCormick cuts + spatial branching;
+* bilinear lifts of the quadratic upgrade — McCormick cuts + spatial
+  branching;
+* conflict rows from the relaxation certificates and binary no-goods from
+  propagation conflicts, used for bound propagation at every node.
+
+The loop runs the nonlinear B&B (``solve_sdps = 1``) on one device: the
+card unless ``device="cpu"`` is given, with no fall-back to the CPU.  What
+the JAX package runs elsewhere raises ``NotImplementedError`` here, so a
+setting never silently changes the algorithm: the device-resident tree
+(``bb.turbo="on"``; ``"auto"`` runs this host loop to the end), the LP
+outer approximation (``solve_sdps = 0``), the device mesh and multi-host
+sync hook, and every option that reaches the probing module (inner-LP
+heuristic, analytic-center warm starts, OBBT, rounding-problem warm starts,
+Slater statistics, fractional diving).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from scipsdp_tpu_torch.core import rank1 as r1
+from scipsdp_tpu_torch.core.branching import select_branch_var
+from scipsdp_tpu_torch.core.feascheck import check_points
+from scipsdp_tpu_torch.core.presolve_sdp import (postsolve_solution,
+                                                 presolve_problem)
+from scipsdp_tpu_torch.core.propagate import (matrix_view, propagate_3minors,
+                                              propagate_upper_bounds,
+                                              tighten_bounds,
+                                              tighten_bounds_onevar)
+from scipsdp_tpu_torch.core.propredcost import redcost_tighten
+from scipsdp_tpu_torch.core.sdpi import SDPInterface
+from scipsdp_tpu_torch.models.problem import INF, MISDP, DenseSDPData, densify
+from scipsdp_tpu_torch.native.frontier import FrontierStore
+from scipsdp_tpu_torch.utils.config import Settings
+from scipsdp_tpu_torch.utils.status import SolveStatus, SolverResultStatus
+
+CUT_CHUNK = 16          # cut-buffer capacity granularity (padded rows keep
+#                         the batched solve's shapes few)
+
+_OPT_CODES = (int(SolverResultStatus.OPTIMAL),
+              int(SolverResultStatus.PRESOLVED_OPTIMAL))
+
+
+@dataclasses.dataclass
+class BBStats:
+    nodes: int = 0
+    relax_solves: int = 0
+    ipm_iterations: int = 0
+    solver_calls: int = 0
+    npenalty: int = 0
+    nunsolved: int = 0
+    ndirect: int = 0          # fastest-tier (direct rung) decisions
+    #                           (disp_sdpfastsettings role)
+    heur_found: int = 0
+    ncuts: int = 0
+    sep_rounds: int = 0
+    redcost_tightenings: int = 0
+    roundingprobinf: int = 0  # nodes cut off by the primal rounding problem
+    nnogoods: int = 0         # learned binary no-good conflict rows
+    nenforce_sdp: int = 0     # LP-mode exact-SDP probing enforcement
+    #                           solves (cons_sdp.c:8276-8423)
+    ndropped_nodes: int = 0   # nodes dropped undecidable (LP mode)
+    nnogoods_dropped: int = 0  # no-goods dropped for length (> cap)
+    ncuts_dropped: int = 0    # pool-cut additions rejected (LP mode)
+    sym_capped: str = ""      # why the automorphism search was skipped /
+    #                           truncated ("" = it ran to completion)
+    nstolen: int = 0          # nodes received from other hosts (multi-host)
+    ndonated: int = 0         # nodes donated to other hosts (multi-host)
+    orbital_fixings: int = 0  # 0-fixings from symmetry orbits
+    #                           (prop_sdpsymmetry.c role)
+    slater_holds: int = 0     # per-node dual Slater accounting
+    slater_fails: int = 0     # (table_slater.c role; slatercheck knob)
+    slater_undecided: int = 0
+    slater_primal_holds: int = 0    # per-node PRIMAL Slater accounting
+    slater_primal_fails: int = 0    # (sdpi.c:1748-1812 primal branch)
+    slater_primal_undecided: int = 0
+    # per-routine propagation timing (constraints/SDP/enableproptiming,
+    # cons_sdp.c:265-292): routine name -> accumulated seconds
+    prop_times: dict = dataclasses.field(default_factory=dict)
+    wall_time: float = 0.0
+    solve_time: float = 0.0   # relaxation-solve time (sdpiclock role)
+
+
+@dataclasses.dataclass
+class BBResult:
+    status: SolveStatus
+    objval: Optional[float]        # external (original-sense) objective
+    best_y: Optional[np.ndarray]   # incumbent solution (original vars)
+    dual_bound: float              # external-sense proven bound
+    gap: float
+    stats: BBStats
+
+    def __repr__(self):
+        return (f"BBResult(status={self.status.name}, objval={self.objval}, "
+                f"bound={self.dual_bound}, nodes={self.stats.nodes})")
+
+
+class _Node:
+    __slots__ = ("lb", "ub", "bound", "depth", "cuts", "requeues", "ysol",
+                 "xsol", "wsrows", "tier", "b1")
+
+    def __init__(self, lb, ub, bound, depth, cuts=(), requeues=0, ysol=None,
+                 xsol=None, wsrows=-1, tier=None, b1=frozenset()):
+        self.lb = lb
+        self.ub = ub
+        self.bound = bound
+        self.depth = depth
+        self.cuts = list(cuts)   # node-local cuts: [(g (m,), rhs), ...]
+        self.requeues = requeues  # LP-mode re-separation attempts
+        self.ysol = ysol          # parent relaxation solution (warmstart;
+        #                           cons_savesdpsol.c role)
+        self.xsol = xsol          # parent primal matrices in bucket layout
+        #                           (fillStartX)
+        self.wsrows = wsrows      # cut-row count when ysol was saved:
+        #                           warmstart info is invalidated when the
+        #                           row structure changed
+        #                           (cons_savesdpsol.c:57 nlpcons)
+        self.tier = tier          # inherited (Gamma, gaptol) penalty tier
+        #                           (cons_savedsdpsettings role,
+        #                           relax_sdp.c:4085-4120)
+        self.b1 = b1              # frozenset of binaries BRANCHED to 1 on
+        #                           the path (orbital-fixing stabilizer,
+        #                           performOrbitalFixing role); None =
+        #                           provenance unknown (restored node) ->
+        #                           pin all 1-fixed binaries
+
+
+def _unported_options(settings: Settings, sync_hook=None) -> List[str]:
+    """The settings this loop does not run, each with the ROADMAP item that
+    ports it; ``solve_misdp`` raises ``NotImplementedError`` naming them."""
+    bb = settings.bb
+    out = []
+    if bb.turbo == "on":
+        out.append("bb.turbo='on' (device-resident tree, Queue 1 item 4)")
+    if settings.solve_sdps == 0:
+        out.append("solve_sdps=0 (LP outer approximation with eigenvector "
+                   "cuts, Queue 1 item 6)")
+    if settings.use_mesh:
+        out.append("use_mesh (device mesh, Queue 1 item 8)")
+    if sync_hook is not None:
+        out.append("sync_hook (multi-host sync, Queue 1 item 8)")
+    probing = [
+        ("bb.heuristic_innerlp", bb.heuristic_innerlp),
+        ("bb.warmstartiptype=2 with bb.warmstart",
+         bb.warmstart and bb.warmstartiptype == 2),
+        ("bb.obbt_at_root", bb.obbt_at_root),
+        ("bb.obbt_freq > 0", bb.obbt_freq > 0),
+        ("bb.warmstartproject=4 with bb.warmstart",
+         bb.warmstart and bb.warmstartproject == 4),
+        ("bb.slatercheck > 0", bb.slatercheck > 0),
+        ("bb.diving_freq > 0", bb.diving_freq > 0),
+    ]
+    out += [f"{name} (core/probing.py, Queue 1 item 3b)"
+            for name, on in probing if on]
+    return out
+
+
+def _apply_indicator_propagation(prob: MISDP, lb: np.ndarray, ub: np.ndarray):
+    """binvar fixed to 1 => slack forced to 0 (indicator semantics)."""
+    for link in prob.indicators:
+        if lb[link.binvar] >= 0.5:
+            ub[link.slackvar] = min(ub[link.slackvar], 0.0)
+
+
+def _lift_violated(prob: MISDP, y: np.ndarray, feastol: float) -> bool:
+    """Does y violate a bilinear-lift identity w = y_i y_j (quad upgrade)?"""
+    if not prob.liftinfo:
+        return False
+    return any(abs(y[w] - y[vi] * y[vj]) > 10.0 * feastol
+               for (w, vi, vj) in prob.liftinfo)
+
+
+def _violated_indicator(prob: MISDP, y: np.ndarray, feastol: float) -> int:
+    """Return the binvar of a violated indicator link (binvar ~ 1 but slack
+    positive), or -1.  Enforcement role of SCIP's cons_indicator."""
+    for link in prob.indicators:
+        if y[link.binvar] >= 0.5 and y[link.slackvar] > feastol:
+            return link.binvar
+    return -1
+
+
+def _round_up(x: int, chunk: int) -> int:
+    return ((x + chunk - 1) // chunk) * chunk
+
+
+def _split_value(y_j: float, l_: float, u_: float) -> float:
+    """Spatial split point with guaranteed box shrinkage (sBB contraction):
+    y_j kept 20 % of the width inside a finite box, a unit inside a
+    half-open one."""
+    sv = float(y_j)
+    if l_ > -INF / 2 and u_ < INF / 2:
+        w = u_ - l_
+        sv = min(max(sv, l_ + 0.2 * w), u_ - 0.2 * w)
+    elif l_ > -INF / 2:
+        sv = max(sv, l_ + 1.0)
+    elif u_ < INF / 2:
+        sv = min(sv, u_ - 1.0)
+    return sv
+
+
+class _Solver:
+    """Shared state of one solve_misdp run."""
+
+    def __init__(self, prob: MISDP, settings: Settings, device=None):
+        prob = presolve_problem(prob, settings)
+        self.prob = prob
+        self.settings = settings
+        self.dense: DenseSDPData = densify(prob)
+        self.m = prob.nvars
+        pairs = [(link.binvar, link.slackvar) for link in prob.indicators]
+        self.iface = SDPInterface(self.dense, settings, indicator_pairs=pairs,
+                                  device=device)
+        # conflict constraints (generateConflictCons, relax_sdp.c:1424):
+        # globally valid rows used for bound propagation only (the
+        # reference adds them with propagate=TRUE, everything else FALSE)
+        self._conf_D: List[np.ndarray] = []
+        self._conf_lhs: List[float] = []
+        self._conf_keys = set()
+        self._conf_cache = None
+        self.stats = BBStats()
+        # LP-row violation evaluator for the rank-1 completion heuristic
+        D = prob.lp.dense(prob.nvars)
+        lhs, rhs = prob.lp.lhs, prob.lp.rhs
+
+        def violation(yv: np.ndarray, nlb=None, nub=None) -> float:
+            v = 0.0
+            if D.shape[0]:
+                act = D @ yv
+                va = np.maximum(np.where(lhs > -INF, lhs - act, 0.0), 0.0)
+                va = np.maximum(va, np.where(rhs < INF, act - rhs, 0.0))
+                v = float(va.max())
+            if nlb is not None:
+                v = max(v, float(np.maximum(
+                    np.where(nlb > -INF, nlb - yv, 0.0), 0.0).max()))
+            if nub is not None:
+                v = max(v, float(np.maximum(
+                    np.where(nub < INF, yv - nub, 0.0), 0.0).max()))
+            return v
+
+        self.violation = violation
+
+    _mv = None   # cached matrix view (constructMatrixvar, cons_sdp.c:570)
+
+    def _timed(self, name: str, t0: float) -> float:
+        t1 = time.perf_counter()
+        self.stats.prop_times[name] = (self.stats.prop_times.get(name, 0.0)
+                                       + t1 - t0)
+        return t1
+
+    def propagate_node(self, lb: np.ndarray, ub: np.ndarray,
+                       depth: int = 0):
+        """Propagation at node creation; returns (lb, ub, conflict).
+
+        Activity-based tightening over LP + conflict rows always; every
+        ``prop_freq``-th depth additionally the SDP-structural
+        propagation of consPropSdp (cons_sdp.c:7046): upper-bound
+        propagation |X_st| <= sqrt(X_ss X_tt) and 3x3-minor equalities on
+        the matrix view — the reference runs these at EVERY node, not
+        just the root."""
+        timing = self.settings.bb.enableproptiming
+        extra = None
+        if self._conf_D:
+            if self._conf_cache is None or len(self._conf_cache[1]) != len(
+                    self._conf_lhs):
+                self._conf_cache = (
+                    np.stack(self._conf_D),
+                    np.array(self._conf_lhs),
+                    np.full(len(self._conf_lhs), INF),
+                )
+            extra = self._conf_cache
+        t0 = time.perf_counter()
+        lb, ub, conflict = tighten_bounds(self.prob, lb, ub, rounds=2,
+                                          extra=extra)
+        if timing:
+            self._timed("tightenbounds", t0)
+        pf = self.settings.bb.prop_freq
+        if (not conflict and pf > 0 and depth % pf == 0
+                and self.prob.blocks):
+            if self._mv is None:
+                self._mv = matrix_view(self.prob)
+            t0 = time.perf_counter()
+            nt = propagate_upper_bounds(self.prob, lb, ub, self._mv)
+            if timing:
+                t0 = self._timed("propupperbounds", t0)
+            nt += propagate_3minors(self.prob, lb, ub, self._mv)
+            if timing:
+                self._timed("prop3minor", t0)
+            if nt:
+                self.stats.redcost_tightenings += nt
+                lb, ub, conflict = tighten_bounds(self.prob, lb, ub,
+                                                  rounds=1, extra=extra)
+        return lb, ub, conflict
+
+    def learn_nogood(self, clb: np.ndarray, cub: np.ndarray,
+                     root_lb: np.ndarray, root_ub: np.ndarray) -> None:
+        """Conflict analysis on a propagation-infeasible child
+        (cons_sdp.c:4793,5138 analog): the set of binary fixings that led
+        here cannot all hold together — learn the binary no-good row
+        sum_{j fixed to 0} y_j + sum_{j fixed to 1} (1 - y_j) >= 1 as a
+        globally valid propagation row."""
+        bb = self.settings.bb
+        if len(self._conf_lhs) >= bb.max_conflict_rows:
+            return
+        binary = (self.prob.integral & (root_lb <= 0.0) & (root_ub >= 1.0)
+                  & (root_ub - root_lb <= 1.0 + 1e-9))
+        fix0 = binary & (cub <= 0.5) & (root_ub > 0.5)
+        fix1 = binary & (clb >= 0.5) & (root_lb < 0.5)
+        nfix = int(fix0.sum() + fix1.sum())
+        if nfix == 0:
+            return
+        if nfix > 32:   # too-long no-goods never propagate
+            if self.stats.nnogoods_dropped == 0:
+                print(f"  [notice] conflict no-good with {nfix} fixings "
+                      f"exceeds the 32-literal cap; dropped")
+            self.stats.nnogoods_dropped += 1
+            return
+        # VALIDITY GUARD: the no-good claims the binary fixings ALONE are
+        # jointly infeasible, so every bound the child tightened relative
+        # to the root must either be one of those fixings or follow from
+        # them (indicator propagation: binvar = 1 => slack <= 0); a child
+        # also carrying general-integer splits or propagation tightenings
+        # would yield an UNSOUND row
+        implied = fix0 | fix1
+        for link in self.prob.indicators:
+            if fix1[link.binvar] or clb[link.binvar] >= 0.5:
+                implied[link.slackvar] = True
+        moved = ((clb > root_lb + 1e-9) | (cub < root_ub - 1e-9))
+        if bool(np.any(moved & ~implied)):
+            return
+        g = np.zeros(self.m)
+        g[fix0] = 1.0
+        g[fix1] = -1.0
+        lhs = 1.0 - float(fix1.sum())
+        key = (g.tobytes(), round(lhs, 9))
+        if key in self._conf_keys:
+            return
+        self._conf_keys.add(key)
+        self._conf_D.append(g)
+        self._conf_lhs.append(lhs)
+        self.stats.nnogoods += 1
+
+    def collect_conflicts(self, batch: List[_Node], res) -> None:
+        """Store conflict rows from this batch's certificates
+        (relax_sdp.c:4353 relaxExecSdp calls generateConflictCons after
+        both feasible and infeasible solves, per conflictfeas/-infeas)."""
+        bb = self.settings.bb
+        want = np.zeros(res.status.shape[0], dtype=bool)
+        if bb.conflictfeas:
+            want |= res.status == int(SolverResultStatus.OPTIMAL)
+        if bb.conflictinfeas:
+            want |= res.status == int(SolverResultStatus.INFEASIBLE)
+        want[len(batch):] = False
+        if not want.any() or len(self._conf_lhs) >= bb.max_conflict_rows:
+            return
+        G, lhs = self.iface.conflict_cuts(res)
+        for i in np.where(want)[0]:
+            g = G[i]
+            scale = np.abs(g).max()
+            if not np.isfinite(lhs[i]) or not np.all(np.isfinite(g)) \
+                    or scale < 1e-12:
+                continue
+            lhs_i = lhs[i]
+            if bb.conflictcmir:
+                from scipsdp_tpu_torch.ops.cmir import cmir_cut
+                mir = cmir_cut(g, lhs[i], self.prob.lb, self.prob.ub,
+                               self.prob.integral, res.y[i])
+                if mir is not None:
+                    g, lhs_i = mir
+                    scale = max(np.abs(g).max(), 1e-12)
+            key = (np.round(g / scale, 6).tobytes(),
+                   round(float(lhs_i / scale), 6))
+            if key in self._conf_keys:
+                continue
+            if len(self._conf_lhs) >= bb.max_conflict_rows:
+                break
+            self._conf_keys.add(key)
+            self._conf_D.append(g.astype(np.float64))
+            self._conf_lhs.append(float(lhs_i))
+
+    # -- cuts ---------------------------------------------------------------
+
+    def _assemble_cuts(self, batch: List[_Node], B: int):
+        """Padded per-node cut arrays of the node-local cuts (rank-1
+        secants, McCormick rows).  The JAX package puts its LP mode's
+        global eigenvector-cut pool in front of them; SDP mode leaves that
+        pool empty."""
+        q = max((len(n.cuts) for n in batch), default=0)
+        if q == 0:
+            return None
+        q = _round_up(q, CUT_CHUNK)
+        Gc = np.zeros((B, q, self.m))
+        hc = np.zeros((B, q))
+        valid = np.zeros((B, q), dtype=bool)
+        for i, node in enumerate(batch):
+            for c, (g, rhs) in enumerate(node.cuts):
+                Gc[i, c, :] = g
+                hc[i, c] = rhs
+                valid[i, c] = True
+        return Gc, hc, valid
+
+    # -- relaxation solving -------------------------------------------------
+
+    def node_X_buckets(self, res, i: int) -> List[np.ndarray]:
+        """Batch row i's primal matrices in bucket layout (the form the
+        IPM's fillStartX warmstart consumes)."""
+        return [np.asarray(res.X[t][i]) for t in range(len(res.X))]
+
+    last_q = 0   # cut-row count of the most recent relaxation solve
+
+    def solve_relaxations(self, batch: List[_Node], B: int,
+                          lb: np.ndarray, ub: np.ndarray):
+        t_solve = time.time()
+        cuts = self._assemble_cuts(batch, B)
+        self.last_q = 0 if cuts is None else cuts[0].shape[1]
+        # the rounding heuristics ride the solve dispatch
+        seed = self.settings.seed + 7919 * self.stats.nodes
+        warm = None
+        bb = self.settings.bb
+        if bb.warmstart:
+            wy = np.zeros((lb.shape[0], self.m))
+            wmask = np.zeros(lb.shape[0], dtype=bool)
+            wX = None
+            if bb.warmstartprimal:
+                wX = [np.zeros((lb.shape[0],) + tuple(C.shape))
+                      for C in self.iface.data.C]
+            for i, node in enumerate(batch):
+                # invalidate when the relaxation's row structure changed
+                # since the parent solve (cons_savesdpsol.c:57)
+                if node.ysol is not None and node.wsrows == self.last_q:
+                    wy[i] = node.ysol
+                    wmask[i] = True
+                    if wX is not None and node.xsol is not None:
+                        for t in range(len(wX)):
+                            wX[t][i] = node.xsol[t]
+            if wmask.any():
+                warm = (wy, wmask, wX)
+        # per-node settings inheritance (cons_savedsdpsettings): pass the
+        # parents' successful penalty tiers so the ladder skips re-climbing
+        tier = None
+        if any(n.tier is not None for n in batch):
+            tier = np.full((lb.shape[0], 2), np.nan)
+            for i, n in enumerate(batch):
+                if n.tier is not None:
+                    tier[i] = n.tier
+        res = self.iface.solve_batch(lb, ub, cuts=cuts, rounding_seed=seed,
+                                     warm=warm, tier=tier)
+        self.stats.relax_solves += 1
+        self.stats.ipm_iterations += res.iters
+        self.stats.solver_calls += res.nsolves
+        self.stats.npenalty += res.npenalty
+        self.stats.ndirect += res.ndirect
+        self.stats.solve_time += time.time() - t_solve
+        return res
+
+
+def save_checkpoint(path: str, frontier, incumbent_val, incumbent_y,
+                    stats: BBStats) -> None:
+    """Serialize the B&B frontier + incumbent (the reference has no solve-
+    level checkpointing, SURVEY.md section 5 — this adds it).  The file
+    format is the JAX package's, so either package resumes the other's."""
+    nodes = [(nlb, nub, side[0], ndepth)
+             for (nlb, nub, _prio, ndepth, side) in frontier.dump()]
+    np.savez_compressed(
+        path,
+        lbs=np.array([n[0] for n in nodes]) if nodes else np.zeros((0, 0)),
+        ubs=np.array([n[1] for n in nodes]) if nodes else np.zeros((0, 0)),
+        bounds=np.array([n[2] for n in nodes]),
+        depths=np.array([n[3] for n in nodes]),
+        incumbent_val=incumbent_val,
+        incumbent_y=(incumbent_y if incumbent_y is not None
+                     else np.zeros(0)),
+        nodes_processed=stats.nodes,
+    )
+
+
+def load_checkpoint(path: str):
+    """Returns (node tuples, incumbent_val, incumbent_y, nodes_processed)."""
+    z = np.load(path)
+    nodes = [(z["lbs"][i], z["ubs"][i], float(z["bounds"][i]),
+              int(z["depths"][i])) for i in range(len(z["bounds"]))]
+    inc_y = z["incumbent_y"] if z["incumbent_y"].size else None
+    return nodes, float(z["incumbent_val"]), inc_y, int(z["nodes_processed"])
+
+
+def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
+                log: bool = False, checkpoint: Optional[str] = None,
+                checkpoint_every: int = 50,
+                resume: bool = False,
+                sync_hook=None, device=None) -> BBResult:
+    """Solve a MISDP by branch-and-bound with batched relaxation solves.
+
+    ``checkpoint``: path for periodic frontier+incumbent snapshots (every
+    ``checkpoint_every`` batches); ``resume=True`` restarts from it.
+
+    ``device``: where the relaxations are solved; ``None`` means the CUDA
+    card and raises without one, ``"cpu"`` solves on the CPU.
+
+    ``sync_hook`` (multi-host coordination) and the settings the module
+    docstring names as not ported raise ``NotImplementedError`` before any
+    work, each message naming its ROADMAP item."""
+    settings = settings or Settings()
+    missing = _unported_options(settings, sync_hook)
+    if missing:
+        raise NotImplementedError(
+            "solve_misdp: not ported yet: " + "; ".join(missing))
+    bb = settings.bb
+    feastol = bb.feastol
+    # DIMACS-scaled check tolerance (usedimacsfeastol, cons_sdp.c:703-710):
+    # the check callback's eigenvalue tolerance scales with 1 + sum|obj_j|
+    # (dimacsfeastol = feastol * (1 + sum), cons_sdp.c:7716-7727)
+    feastol_check = (feastol * (1.0 + float(np.sum(np.abs(prob.obj))))
+                     if bb.usedimacsfeastol else feastol)
+    t0 = time.time()
+
+    m_user = prob.nvars   # report solutions in the user's variable space
+    sol = _Solver(prob, settings, device=device)
+    prob = sol.prob       # presolve may lift (quad upgrade) or shrink
+    m = prob.nvars        # (fix_and_aggregate) the problem
+
+    def to_user_space(yv):
+        if yv is None:
+            return None
+        return postsolve_solution(prob, yv)[:m_user]
+    integral = prob.integral
+    obj = prob.obj
+    stats = sol.stats
+    has_rank1 = bool(np.any(sol.dense.rank1))
+
+    incumbent_val = np.inf
+    incumbent_y: Optional[np.ndarray] = None
+
+    root_lb = prob.lb.copy()
+    root_ub = prob.ub.copy()
+    _apply_indicator_propagation(prob, root_lb, root_ub)
+    # root propagation: activity-based bound tightening derives finite
+    # boxes for free variables constrained only through rows (needed by
+    # rank-1 secant cuts and spatial branching; SCIP-core propagation role)
+    root_lb, root_ub, root_conflict = tighten_bounds(prob, root_lb, root_ub)
+    if not root_conflict:
+        # SDP-structural propagation (cons_sdp defaults: propupperbounds,
+        # prop3minors, tightenbounds all TRUE)
+        mv = matrix_view(prob)
+        stats.redcost_tightenings += propagate_upper_bounds(
+            prob, root_lb, root_ub, mv)
+        stats.redcost_tightenings += propagate_3minors(
+            prob, root_lb, root_ub, mv)
+        stats.redcost_tightenings += tighten_bounds_onevar(
+            prob, root_lb, root_ub)
+        root_lb, root_ub, root_conflict = tighten_bounds(
+            prob, root_lb, root_ub)
+    if root_conflict:
+        stats.wall_time = time.time() - t0
+        return BBResult(SolveStatus.INFEASIBLE, None, None,
+                        prob.external_objval(np.inf), 0.0, stats)
+
+    # full automorphism group for orbital fixing (compute_symmetry_bliss
+    # role; generators verified exactly — see core/symmetry.py)
+    sym_group = None
+    if (settings.use_symmetry
+            and getattr(settings, "symmetry_mode", "lexrows") == "orbital"):
+        from scipsdp_tpu_torch.core.symmetry import automorphism_group
+        sym_group = automorphism_group(prob)
+        if sym_group.capped:
+            stats.sym_capped = sym_group.capped
+            if log:
+                print(f"  [notice] automorphism search capped: "
+                      f"{sym_group.capped}")
+        if not sym_group.nontrivial:
+            sym_group = None
+
+    def _push_node(node: _Node, prio: float) -> None:
+        frontier.push(node.lb, node.ub, prio, node.depth,
+                      side=(node.bound, node.cuts, node.requeues,
+                            node.ysol, node.xsol, node.wsrows, node.tier,
+                            node.b1))
+
+    # native slab-allocated node pool (SCIP-core tree-management role;
+    # native/frontier.cpp), Python-heap fallback of the same pop order
+    frontier = FrontierStore(m)
+    if resume and checkpoint is not None and os.path.exists(checkpoint):
+        nodes_ck, inc_v, inc_y, nproc = load_checkpoint(checkpoint)
+        incumbent_val = inc_v
+        incumbent_y = inc_y
+        stats.nodes = nproc
+        for nlb, nub, nbound, ndepth in nodes_ck:
+            # restored nodes lose branching provenance: b1=None keeps
+            # orbital fixing on its always-sound pin-all-ones fallback
+            _push_node(_Node(nlb, nub, nbound, ndepth, b1=None), nbound)
+        if not len(frontier) and incumbent_y is None:
+            resume = False
+    if not len(frontier) and (not resume or incumbent_y is None):
+        _push_node(_Node(root_lb, root_ub, -np.inf, 0), -np.inf)
+
+    unbounded = False
+    hit_limit: Optional[SolveStatus] = None
+
+    while True:
+        if hit_limit is None and stats.nodes >= bb.node_limit:
+            hit_limit = SolveStatus.NODE_LIMIT
+        if hit_limit is None and time.time() - t0 > bb.time_limit:
+            hit_limit = SolveStatus.TIME_LIMIT
+        if hit_limit is not None or not len(frontier):
+            break
+
+        # bound pruning slack: rank-1 heuristic incumbents are only
+        # ~feastol-accurate, so close the tree at a matching relative gap
+        # (the reference's own tolerances are 1e-5, BASELINE.md)
+        prune_slack = max(1e-9, (2e-5 if has_rank1 else 1e-6)
+                          * abs(incumbent_val if np.isfinite(incumbent_val)
+                                else 0.0))
+        batch: List[_Node] = []
+        cap = (max(1, bb.batch_size // 4) if bb.node_selection == "dfs"
+               else bb.batch_size)   # DFS: smaller batches, dive quickly
+        while len(frontier) and len(batch) < cap:
+            for (nlb, nub, _prio, ndepth, side) in frontier.pop_upto(
+                    cap - len(batch)):
+                nbound, ncuts, nreq, nysol, nxsol, nws, ntier, nb1 = side
+                if nbound >= incumbent_val - prune_slack:
+                    continue   # late bound pruning
+                batch.append(_Node(nlb, nub, nbound, ndepth, ncuts, nreq,
+                                   nysol, nxsol, nws, ntier, nb1))
+        if not batch:
+            break
+
+        # orbital fixing (prop_sdpsymmetry.c): in each orbit of the
+        # stabilizer of the node's 1-fixed binaries, a 0-fixed member
+        # fixes the whole orbit to 0
+        if sym_group is not None:
+            from scipsdp_tpu_torch.core.symmetry import orbital_fixing
+            for node in batch:
+                node.lb, node.ub, nf, oinf = orbital_fixing(
+                    sym_group, node.lb, node.ub, integral, eps=feastol,
+                    branched_ones=node.b1)
+                stats.orbital_fixings += nf
+                if oinf:
+                    # 0- and 1-fixed member in one orbit: node infeasible;
+                    # a conflict box retires it at the presolve rung
+                    node.lb = node.lb.copy()
+                    node.ub = node.ub.copy()
+                    node.lb[0], node.ub[0] = 1.0, 0.0
+
+        B = bb.batch_size
+        lb = np.empty((B, m))
+        ub = np.empty((B, m))
+        for i in range(B):
+            if i < len(batch):
+                lb[i] = batch[i].lb
+                ub[i] = batch[i].ub
+            else:
+                lb[i] = 1.0   # dummy slot: bound conflict, presolved away
+                ub[i] = 0.0
+
+        res = sol.solve_relaxations(batch, B, lb, ub)
+        stats.nodes += len(batch)
+        if bb.conflictconss:
+            sol.collect_conflicts(batch, res)
+
+        # batched rounding heuristics: nearest rounding
+        # (heur_sdpfracround.c) and randomized rounding (heur_sdprand.c),
+        # rounded and checked on the device inside the direct rung (which
+        # gates each heuristic's candidate itself)
+        if bb.heuristic_fracround or bb.heuristic_rand:
+            yr = res.round_y
+            feas = res.round_feas.copy()
+            for i in range(len(batch)):
+                if feas[i] and has_rank1 and r1.rank1_violation(
+                        sol.dense, yr[i], feastol) is not None:
+                    feas[i] = False
+                if feas[i] and _lift_violated(prob, yr[i], feastol):
+                    feas[i] = False
+        else:
+            feas = np.zeros(B, dtype=bool)
+            yr = res.y
+
+        for i, node in enumerate(batch):
+            st = res.status[i]
+            if st in (SolverResultStatus.INFEASIBLE,
+                      SolverResultStatus.PRESOLVED_INFEASIBLE):
+                continue  # cutoff
+            if st == SolverResultStatus.UNBOUNDED:
+                unbounded = True
+                continue
+            if st in (SolverResultStatus.FAILED,
+                      SolverResultStatus.ITERLIMIT,
+                      SolverResultStatus.TIMELIMIT):
+                stats.nunsolved += 1
+                bound = node.bound  # no new information; keep parent bound
+                y = None
+            else:
+                # monotone: the parent bound stays valid for the child, so
+                # a looser rescue bound (BOUND_ONLY salvage) never weakens
+                # the subtree's pruning
+                bound = max(float(res.objval[i]), node.bound)
+                y = res.y[i]
+
+            if bound >= incumbent_val - prune_slack + bb.gaplimit * abs(
+                    incumbent_val):
+                continue  # bound pruning
+
+            # heuristic incumbent
+            if y is not None and feas[i]:
+                val = float(obj @ yr[i])
+                if val < incumbent_val - 1e-12:
+                    incumbent_val = val
+                    incumbent_y = yr[i].copy()
+                    stats.heur_found += 1
+
+            if st == SolverResultStatus.PRESOLVED_OPTIMAL and not has_rank1:
+                # all vars fixed & feasible: leaf with known value (with
+                # rank-1 constraints the presolve decision only covers the
+                # relaxation data, so fall through to the full acceptance
+                # check below)
+                if bound < incumbent_val - 1e-12:
+                    incumbent_val = bound
+                    incumbent_y = 0.5 * (node.lb + node.ub)
+                continue
+
+            # acceptance check of the relaxation solution
+            enforce_ind = -1
+            spatial = None   # (var, splitval, child cuts) for rank-1
+            if y is not None and st in _OPT_CODES:
+                frac = np.abs(y[integral] - np.round(y[integral]))
+                if frac.size == 0 or np.max(frac) <= feastol:
+                    enforce_ind = _violated_indicator(prob, y, feastol)
+                    if enforce_ind < 0 and prob.liftinfo:
+                        # bilinear-lift enforcement (quad upgrade): find the
+                        # most violated identity w = y_i y_j, branch on the
+                        # wider factor at its current value; children get
+                        # refreshed McCormick envelopes for their boxes
+                        from scipsdp_tpu_torch.core.quadupgrade import \
+                            mccormick_rows
+                        best_v, best_t = 10.0 * feastol, None
+                        for (w, vi, vj) in prob.liftinfo:
+                            viol = abs(y[w] - y[vi] * y[vj])
+                            if viol > best_v:
+                                best_v, best_t = viol, (w, vi, vj)
+                        if best_t is not None:
+                            w, vi, vj = best_t
+                            wi = node.ub[vi] - node.lb[vi]
+                            wj = node.ub[vj] - node.lb[vj]
+                            j_br = vi if (vi == vj or wi >= wj) else vj
+                            touched = [t for t in prob.liftinfo
+                                       if j_br in (t[1], t[2])]
+
+                            def child_mcc(clb, cub, touched=touched):
+                                return [(g, rhs) for g, rhs in
+                                        mccormick_rows(m, touched, clb, cub)]
+
+                            spatial = (j_br, _split_value(
+                                y[j_br], node.lb[j_br], node.ub[j_br]),
+                                child_mcc)
+                        else:
+                            # identities hold: solution is truly feasible
+                            if bound < incumbent_val - 1e-12:
+                                incumbent_val = bound
+                                incumbent_y = y.copy()
+                            continue
+                    if enforce_ind < 0 and spatial is None and has_rank1:
+                        v = r1.rank1_violation(sol.dense, y, feastol)
+                        if v is not None:
+                            # rank-1 extreme-point heuristic: re-solve the
+                            # node with an objective perturbation driving
+                            # the solution toward a rank-1 extreme point
+                            # of the (near-)optimal face, then project and
+                            # verify; accepts the node when the heuristic
+                            # value meets the node bound
+                            node_done = False
+
+                            def try_candidate(yc):
+                                nonlocal incumbent_val, incumbent_y, node_done
+                                yp = yc.copy()
+                                fr = np.abs(yp[integral]
+                                            - np.round(yp[integral]))
+                                if fr.size and np.max(fr) > feastol:
+                                    return False
+                                yp[integral] = np.round(yp[integral])
+                                # heuristic candidates carry a small
+                                # least-squares completion residual; accept
+                                # at a modestly relaxed tolerance (their
+                                # objective is evaluated exactly)
+                                okp, _ = check_points(
+                                    sol.iface.data, yp[None, :],
+                                    node.lb[None, :], node.ub[None, :],
+                                    feastol=10.0 * feastol_check)
+                                if not (bool(okp[0].item())
+                                        and _violated_indicator(
+                                            prob, yp, feastol) < 0
+                                        and r1.rank1_violation(
+                                            sol.dense, yp, feastol) is None):
+                                    return False
+                                val = float(obj @ yp)
+                                if val < incumbent_val - 1e-12:
+                                    incumbent_val = val
+                                    incumbent_y = yp.copy()
+                                    stats.heur_found += 1
+                                if val <= bound + max(
+                                        1e-6, 2e-5 * abs(bound)):
+                                    node_done = True
+                                return True
+
+                            def node_viol(yv, node=node):
+                                return sol.violation(yv, node.lb, node.ub)
+
+                            # candidate 0: the relaxation point itself
+                            # (PSD/LP-feasible at solver tolerance; accepted
+                            # when its rank-1 violation is within feastol);
+                            # candidate 1: the sign-enumerating rank-1
+                            # completion at the relaxation solution
+                            if not (try_candidate(y) or try_candidate(
+                                    r1.rank1_complete(sol.dense, y, obj,
+                                                      viol_fn=node_viol))):
+                                # candidates 2..: perturbed re-solves that
+                                # land on an extreme point of the optimal
+                                # face — the eigen-directed perturbation
+                                # plus random directions (deterministic
+                                # seed), solved as ONE batched dispatch
+                                oscale = max(1.0, np.abs(obj).max())
+                                dirs = [r1.eigen_perturbation(sol.dense, y)]
+                                rng = np.random.default_rng(
+                                    settings.seed + stats.nodes)
+                                for _ in range(4):
+                                    rd = rng.standard_normal(m)
+                                    rd[integral] = 0.0
+                                    dirs.append(rd)
+                                dirs = [p / max(1.0, np.abs(p).max())
+                                        for p in dirs]
+                                P = len(dirs)
+                                objs = np.stack(
+                                    [obj - 1e-2 * oscale * p for p in dirs])
+                                rp = sol.iface.solve_batch(
+                                    np.tile(node.lb, (P, 1)),
+                                    np.tile(node.ub, (P, 1)), obj=objs)
+                                found_dir = None
+                                for di, pert in enumerate(dirs):
+                                    if rp.status[di] != int(
+                                            SolverResultStatus.OPTIMAL):
+                                        continue
+                                    if try_candidate(rp.y[di]) or \
+                                       try_candidate(r1.rank1_project(
+                                            sol.dense, rp.y[di])) or \
+                                       try_candidate(r1.rank1_complete(
+                                            sol.dense, rp.y[di], obj,
+                                            viol_fn=node_viol)):
+                                        found_dir = pert
+                                        break
+                                if found_dir is not None and not node_done:
+                                    # polish: shrink the perturbation to
+                                    # reduce the O(eps) objective distortion
+                                    # (both eps levels in one dispatch,
+                                    # padded to the P-row batch)
+                                    epss = (1e-3, 1e-4)
+                                    objs2 = np.stack(
+                                        [obj - e * oscale * found_dir
+                                         for e in epss]
+                                        + [obj] * (P - len(epss)))
+                                    lbp = np.tile(node.lb, (P, 1))
+                                    ubp = np.tile(node.ub, (P, 1))
+                                    lbp[len(epss):] = 1.0  # dummy slots:
+                                    ubp[len(epss):] = 0.0  # presolved away
+                                    rp2 = sol.iface.solve_batch(
+                                        lbp, ubp, obj=objs2)
+                                    for ke in range(len(epss)):
+                                        if rp2.status[ke] != int(
+                                                SolverResultStatus.OPTIMAL):
+                                            break
+                                        ok_polish = (
+                                            try_candidate(r1.rank1_project(
+                                                sol.dense, rp2.y[ke]))
+                                            or try_candidate(
+                                                r1.rank1_complete(
+                                                    sol.dense, rp2.y[ke],
+                                                    obj, viol_fn=node_viol)))
+                                        if not ok_polish or node_done:
+                                            break
+                            if node_done:
+                                continue
+                            k, s, t, _ = v
+                            j = r1.rank1_branch_var(
+                                sol.dense, k, s, t, y, node.lb, node.ub,
+                                feastol)
+                            if j >= 0:
+                                spatial = (j, _split_value(
+                                    y[j], node.lb[j], node.ub[j]),
+                                    r1.rank1_cuts(sol.dense, k, s, t,
+                                                  node.lb, node.ub))
+                    if enforce_ind < 0 and spatial is None:
+                        if bound < incumbent_val - 1e-12:
+                            incumbent_val = bound
+                            incumbent_y = y.copy()
+                        continue
+
+            # reduced-cost / dual fixing propagation on the node bounds
+            # (prop_sdpredcost.c analog; children inherit the tightening)
+            if (st == SolverResultStatus.OPTIMAL
+                    and np.isfinite(incumbent_val)):
+                stats.redcost_tightenings += redcost_tighten(
+                    node.lb, node.ub, res.xlb[i], res.xub[i],
+                    bound, incumbent_val, integral, feastol)
+
+            # branching
+            if enforce_ind >= 0:
+                j, split = enforce_ind, 0.0
+            elif spatial is not None:
+                j, split, child_cuts = spatial
+            else:
+                j = (select_branch_var(y, obj, integral, feastol,
+                                       bb.branching_rule)
+                     if y is not None else -1)
+                if j < 0:
+                    unfixed = np.where(
+                        integral & (node.ub - node.lb > feastol))[0]
+                    if unfixed.size == 0:
+                        continue  # nothing to do
+                    j = int(unfixed[0])
+                    split = np.floor(0.5 * (node.lb[j] + node.ub[j]))
+                else:
+                    split = np.floor(y[j])
+
+            if spatial is not None:
+                # continuous split at the current value; both children get
+                # locally valid cuts for their (shrunken) boxes — a static
+                # list (rank-1 secants) or a per-child generator (McCormick
+                # envelopes, which depend on the child box)
+                children = []
+                for side in (0, 1):
+                    clb, cub = node.lb.copy(), node.ub.copy()
+                    if side == 0:
+                        cub[j] = split
+                    else:
+                        clb[j] = split
+                    gen = (child_cuts(clb, cub) if callable(child_cuts)
+                           else child_cuts)
+                    children.append((clb, cub, list(node.cuts) + list(gen),
+                                     node.b1))
+            else:
+                lb1, ub1 = node.lb.copy(), node.ub.copy()
+                lb2, ub2 = node.lb.copy(), node.ub.copy()
+                ub1[j] = split
+                lb2[j] = split + 1.0
+                # up-child of a binary at split 0: a BRANCHED 1-fixing
+                # (the orbital-fixing stabilizer pins exactly these)
+                b1_up = node.b1
+                if (node.b1 is not None and integral[j]
+                        and lb2[j] >= 0.5 and node.lb[j] < 0.5
+                        and node.ub[j] <= 1.0 + feastol
+                        and node.lb[j] >= -feastol):
+                    b1_up = node.b1 | {int(j)}
+                children = [(lb1, ub1, list(node.cuts), node.b1),
+                            (lb2, ub2, list(node.cuts), b1_up)]
+
+            for clb, cub, ccuts, cb1 in children:
+                _apply_indicator_propagation(prob, clb, cub)
+                clb, cub, child_conflict = sol.propagate_node(
+                    clb, cub, node.depth + 1)
+                if child_conflict:
+                    # conflict analysis on the propagation conflict
+                    # (cons_sdp.c:4793): learn a binary no-good
+                    if bb.conflict_nogoods:
+                        sol.learn_nogood(clb, cub, root_lb, root_ub)
+                    continue
+                if np.all(clb <= cub + feastol):
+                    prio = (bound if bb.node_selection != "dfs"
+                            else -float(node.depth + 1))
+                    # children inherit the tier that solved THIS node
+                    # (cons_savedsdpsettings, relax_sdp.c:4194-4203)
+                    ctier = None
+                    if (res.tier is not None
+                            and np.isfinite(res.tier[i]).any()):
+                        ctier = res.tier[i].copy()
+                    # warmstartpreoptsol: store the captured PRE-optimal
+                    # iterate instead of the optimum (more interior)
+                    ws_y, ws_X = y, None
+                    if (bb.warmstart and res.pre_has is not None
+                            and bool(res.pre_has[i])):
+                        ws_y = res.pre_y[i]
+                        if bb.warmstartprimal and res.pre_X is not None:
+                            ws_X = [np.asarray(res.pre_X[t][i])
+                                    for t in range(len(res.pre_X))]
+                    elif bb.warmstart and bb.warmstartprimal \
+                            and y is not None:
+                        ws_X = sol.node_X_buckets(res, i)
+                    _push_node(
+                        _Node(clb, cub, bound, node.depth + 1, ccuts,
+                              ysol=(ws_y.copy() if ws_y is not None
+                                    and bb.warmstart else None),
+                              xsol=ws_X,
+                              wsrows=sol.last_q,
+                              tier=ctier,
+                              b1=cb1),
+                        prio)
+
+        if (checkpoint is not None
+                and stats.relax_solves % max(checkpoint_every, 1) == 0):
+            save_checkpoint(checkpoint, frontier, incumbent_val,
+                            incumbent_y, stats)
+
+        if log:
+            # live display columns (disp_sdpiterations/avgiterations/
+            # penalty/unsolved analogs)
+            if stats.relax_solves == 1:
+                print(f"{'nodes':>7} {'open':>6} {'incumbent':>14} "
+                      f"{'dualbound':>14} {'sdpiter':>8} {'avgiter':>8} "
+                      f"{'fast':>5} {'pen':>4} {'uns':>4} {'cuts':>5}")
+            fb = (frontier.best_bound() if len(frontier)
+                  else incumbent_val)
+            avg = stats.ipm_iterations / max(stats.relax_solves, 1)
+            print(f"{stats.nodes:>7} {len(frontier):>6} "
+                  f"{prob.external_objval(incumbent_val):>14.6g} "
+                  f"{prob.external_objval(fb):>14.6g} "
+                  f"{stats.ipm_iterations:>8} {avg:>8.1f} "
+                  f"{stats.ndirect:>5} "
+                  f"{stats.npenalty:>4} {stats.nunsolved:>4} "
+                  f"{stats.ncuts:>5}")
+
+    stats.wall_time = time.time() - t0
+
+    if unbounded and incumbent_y is None:
+        return BBResult(SolveStatus.UNBOUNDED, None, None,
+                        -np.inf * prob.objsense, np.inf, stats)
+
+    dual_bound_internal = incumbent_val
+    if len(frontier):
+        dual_bound_internal = min(
+            dual_bound_internal,
+            min(side[0] for (_, _, _, _, side) in frontier.dump()))
+    if hit_limit is not None:
+        objval = (prob.external_objval(incumbent_val)
+                  if incumbent_y is not None else None)
+        gap = (abs(incumbent_val - dual_bound_internal)
+               / max(1e-9, abs(incumbent_val))
+               if incumbent_y is not None else np.inf)
+        return BBResult(hit_limit, objval, to_user_space(incumbent_y),
+                        prob.external_objval(dual_bound_internal), gap, stats)
+
+    if incumbent_y is None:
+        return BBResult(SolveStatus.INFEASIBLE, None, None,
+                        prob.external_objval(np.inf), 0.0, stats)
+
+    return BBResult(
+        SolveStatus.OPTIMAL,
+        prob.external_objval(incumbent_val),
+        to_user_space(incumbent_y),
+        prob.external_objval(incumbent_val),
+        0.0,
+        stats,
+    )

@@ -4,7 +4,9 @@ The JAX package's ``IPMData`` holds the same per-bucket arrays as the
 port's; :func:`ipm_data_from_numpy` takes them as numpy arrays (for example
 ``np.asarray`` of each JAX array) and returns the port's ``IPMData`` on a
 torch device, so both solvers can be given exactly the same problem.
-:func:`settings_from_jax` does the same for a settings dataclass.
+:func:`settings_from_jax` does the same for a settings dataclass, and
+:func:`problem_from_jax` for a problem (``MISDP``), so a B&B solve or a
+checkpoint can be carried across.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from scipsdp_tpu_torch.models import problem as problem_model
 from scipsdp_tpu_torch.ops.ipm import IPMData
 from scipsdp_tpu_torch.utils import config
 
@@ -54,3 +57,28 @@ def settings_from_jax(jsettings):
         vals[f.name] = (settings_from_jax(v) if dataclasses.is_dataclass(v)
                         else v)
     return cls(**vals)
+
+
+def _carry(value):
+    """``value`` rebuilt from the port's problem model: a dataclass becomes
+    the port's class of the same name (fields read by attribute, each
+    carried in turn), numpy arrays are copied, lists and tuples are
+    carried item by item, and anything else is kept."""
+    if dataclasses.is_dataclass(value):
+        cls = getattr(problem_model, type(value).__name__)
+        return cls(**{f.name: _carry(getattr(value, f.name))
+                      for f in dataclasses.fields(value)})
+    if isinstance(value, np.ndarray):
+        return value.copy()
+    if isinstance(value, (list, tuple)):
+        return type(value)(_carry(v) for v in value)
+    return value
+
+
+def problem_from_jax(jprob) -> problem_model.MISDP:
+    """The port's ``MISDP`` with every field of ``jprob`` (a JAX package
+    ``MISDP``): its blocks, LP and propagation rows, indicators, quadratic
+    constraints, lift and postsolve records, copied as numpy, so the port
+    may change its own problem without touching ``jprob``.  Reads only the
+    fields, so it needs no import of the JAX package."""
+    return _carry(jprob)

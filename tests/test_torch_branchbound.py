@@ -1,0 +1,213 @@
+"""The port's branch-and-bound (``core/branchbound.py::solve_misdp``)
+against the JAX package's on the CPU.
+
+* Parity: every instance of ``_torch_bbcases.SOLVE`` goes through both
+  loops with ``bb.turbo="off"`` (JAX on the CPU would otherwise hand the
+  frontier to its device-resident tree after three batches), the
+  randomized rounding off (the port draws it from a ``torch.Generator``,
+  not from JAX's) and the IPM settings pinned on both sides.  Same status,
+  the optimum within 1e-4 relative (bench.py's rule) and the same
+  counts: nodes, batches, IPM iterations, heuristic incumbents,
+  tightenings and the rest of ``BBStats`` but its timings.  The symmetric
+  instance also runs with lexicographic rows and with orbital fixing.
+* One solve at full defaults, held to status and optimum only.
+* Carried state: ``problem_from_jax`` copies every field; a JAX checkpoint
+  resumes in the port to the JAX optimum; the port's own checkpoints
+  resume (tests/test_checkpoint.py's two checks, which read an instance
+  file that is not in the repository, rebuilt on a generated CLS).
+* Every path that is not ported raises ``NotImplementedError``, and
+  ``device=None`` means the card.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_bbcases import SOLVE, assert_same
+from scipsdp_tpu.core.branchbound import solve_misdp as jax_solve_misdp
+from scipsdp_tpu.models import families as jfam
+from scipsdp_tpu.utils.config import (BBSettings, IPMSettings, Settings)
+from scipsdp_tpu_torch.core import branchbound as tbb
+from scipsdp_tpu_torch.interop import problem_from_jax, settings_from_jax
+from scipsdp_tpu_torch.utils.status import SolveStatus
+
+IPM = IPMSettings(phase32="off", step_rule="eigh", use_lanes_chol=False,
+                  use_df32="off", fused_direction="off")
+REL = 1e-4
+
+
+def settings(batch_size=16, **kw):
+    return Settings(ipm=IPM, bb=BBSettings(turbo="off", heuristic_rand=False,
+                                           node_limit=200,
+                                           batch_size=batch_size), **kw)
+
+
+def solve_both(jprob, jsettings, **kw):
+    """(JAX result, the port's result on the CPU) for one problem."""
+    rj = jax_solve_misdp(jprob, jsettings, **kw)
+    rt = tbb.solve_misdp(problem_from_jax(jprob), settings_from_jax(jsettings),
+                         device="cpu", **kw)
+    return rj, rt
+
+
+def assert_same_optimum(rj, rt):
+    assert rt.status.name == rj.status.name
+    if rj.objval is None:
+        assert rt.objval is None
+    else:
+        assert abs(rt.objval - rj.objval) <= REL * max(1.0, abs(rj.objval))
+        assert rt.best_y.shape == rj.best_y.shape
+
+
+def counters(stats) -> dict:
+    """The tree's counts (nodes, batches, IPM iterations, solver calls,
+    penalty and unsolved decisions, heuristic incumbents, tightenings,
+    no-goods, orbital fixings, ...): every field but the timings."""
+    return {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
+            if f.name not in ("prop_times", "wall_time", "solve_time")}
+
+
+SYMMETRY = {"": {}, "lexrows": dict(use_symmetry=True),
+            "orbital": dict(use_symmetry=True, symmetry_mode="orbital")}
+CASES = [(name, "") for name in sorted(SOLVE)] + [
+    ("sym", "lexrows"), ("sym", "orbital")]
+
+
+@pytest.mark.parametrize("name,sym", CASES)
+def test_solve_parity(name, sym):
+    build, batch = SOLVE[name]
+    rj, rt = solve_both(build(), settings(batch, **SYMMETRY[sym]))
+    assert rj.status == rj.status.OPTIMAL
+    assert_same_optimum(rj, rt)
+    assert counters(rt.stats) == counters(rj.stats)
+    assert abs(rt.dual_bound - rj.dual_bound) <= REL * max(
+        1.0, abs(rj.dual_bound))
+
+
+def test_default_settings_solve():
+    """Full defaults in both packages (randomized rounding on, turbo
+    "auto": JAX's CPU policy never hands this small tree over, the port
+    runs its host loop): status and optimum only."""
+    prob = jfam.cardinality_least_squares(5, 8, 2)
+    rj = jax_solve_misdp(prob)
+    rt = tbb.solve_misdp(problem_from_jax(prob), device="cpu")
+    assert rj.status == rj.status.OPTIMAL
+    assert_same_optimum(rj, rt)
+    print(f"nodes: jax {rj.stats.nodes}, port {rt.stats.nodes}")
+
+
+@pytest.mark.parametrize("name", sorted(SOLVE))
+def test_problem_from_jax_carries(name):
+    """Every field crosses unchanged, as a copy the port may change."""
+    jp = SOLVE[name][0]()
+    tp = problem_from_jax(jp)
+    assert type(tp).__module__ == "scipsdp_tpu_torch.models.problem"
+    assert_same(jp, tp)
+    tp.lb[:] = -7.0
+    assert not np.any(jp.lb == -7.0)
+
+
+def cls_instance():
+    return jfam.cardinality_least_squares(6, 12, 3, seed=1)
+
+
+def test_jax_checkpoint_resumes_in_port(tmp_path):
+    """tests/test_checkpoint.py's recipe in the JAX package (node_limit=3,
+    batch_size=2, a checkpoint every batch), resumed by the port."""
+    prob = cls_instance()
+    ck = str(tmp_path / "bb.npz")
+    r1 = jax_solve_misdp(prob, Settings(bb=BBSettings(
+        node_limit=3, batch_size=2, turbo="off")), checkpoint=ck,
+        checkpoint_every=1)
+    assert r1.status == r1.status.NODE_LIMIT
+    full = jax_solve_misdp(prob, Settings(bb=BBSettings(turbo="off")))
+    r2 = tbb.solve_misdp(problem_from_jax(prob), settings_from_jax(
+        Settings(bb=BBSettings(batch_size=2))), checkpoint=ck, resume=True,
+        device="cpu")
+    assert r2.status == SolveStatus.OPTIMAL
+    assert abs(r2.objval - full.objval) <= REL * max(1.0, abs(full.objval))
+    assert r2.stats.nodes > r1.stats.nodes
+
+
+def test_checkpoint_resume(tmp_path):
+    """A node-limited checkpoint resumes to the optimum."""
+    prob = problem_from_jax(cls_instance())
+    ck = str(tmp_path / "bb.npz")
+    full = tbb.solve_misdp(prob, device="cpu")
+    s1 = settings_from_jax(Settings(bb=BBSettings(node_limit=3,
+                                                  batch_size=2)))
+    r1 = tbb.solve_misdp(prob, s1, checkpoint=ck, checkpoint_every=1,
+                         device="cpu")
+    assert r1.status == SolveStatus.NODE_LIMIT
+    s2 = settings_from_jax(Settings(bb=BBSettings(batch_size=2)))
+    r2 = tbb.solve_misdp(prob, s2, checkpoint=ck, resume=True, device="cpu")
+    assert r2.status == SolveStatus.OPTIMAL
+    assert abs(r2.objval - full.objval) <= REL * max(1.0, abs(full.objval))
+
+
+def test_resume_finished_checkpoint(tmp_path):
+    """A checkpoint written by a finished solve resumes to the same
+    objective."""
+    prob = problem_from_jax(cls_instance())
+    ck = str(tmp_path / "bb.npz")
+    r1 = tbb.solve_misdp(prob, checkpoint=ck, checkpoint_every=1,
+                         device="cpu")
+    assert r1.status == SolveStatus.OPTIMAL
+    r2 = tbb.solve_misdp(prob, checkpoint=ck, resume=True, device="cpu")
+    assert r2.status == SolveStatus.OPTIMAL
+    assert abs(r2.objval - r1.objval) < 1e-9
+
+
+UNPORTED = {
+    "turbo_on": dict(bb=dict(turbo="on")),
+    "lp_mode": dict(solve_sdps=0),
+    "use_mesh": dict(use_mesh=True),
+    "sync_hook": dict(),
+    "heuristic_innerlp": dict(bb=dict(heuristic_innerlp=True)),
+    "analytic_center": dict(bb=dict(warmstart=True, warmstartiptype=2)),
+    "obbt_at_root": dict(bb=dict(obbt_at_root=True)),
+    "obbt_freq": dict(bb=dict(obbt_freq=2)),
+    "rounding_problem": dict(bb=dict(warmstart=True, warmstartproject=4)),
+    "slatercheck": dict(bb=dict(slatercheck=1)),
+    "diving_freq": dict(bb=dict(diving_freq=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNPORTED))
+def test_unported_paths_raise(case):
+    """Each path the port does not run yet raises, naming its ROADMAP
+    item, before any work is done."""
+    kw = dict(UNPORTED[case])
+    bb = BBSettings(**kw.pop("bb", {}))
+    s = settings_from_jax(Settings(bb=bb, **kw))
+    hook = (lambda ctx: True) if case == "sync_hook" else None
+    with pytest.raises(NotImplementedError, match="Queue 1 item"):
+        tbb.solve_misdp(problem_from_jax(SOLVE["conflict"][0]()), s,
+                        sync_hook=hook, device="cpu")
+
+
+def test_turbo_auto_runs_the_host_loop():
+    """bb.turbo="auto" (the default) solves with the host loop."""
+    prob = problem_from_jax(SOLVE["conflict"][0]())
+    s = settings_from_jax(Settings(bb=BBSettings(turbo="auto")))
+    res = tbb.solve_misdp(prob, s, device="cpu")
+    assert res.status == SolveStatus.OPTIMAL and res.stats.relax_solves > 0
+
+
+def test_device_none_means_the_card(monkeypatch):
+    """No device means the CUDA card: without one the solve raises, it
+    never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbb.solve_misdp(problem_from_jax(SOLVE["conflict"][0]()))
+
+
+def test_stats_and_result_fields_match():
+    """BBStats and BBResult carry the JAX package's fields."""
+    from scipsdp_tpu.core import branchbound as jbb
+    for jcls, tcls in ((jbb.BBStats, tbb.BBStats),
+                       (jbb.BBResult, tbb.BBResult)):
+        assert ([f.name for f in dataclasses.fields(jcls)]
+                == [f.name for f in dataclasses.fields(tcls)])
