@@ -80,11 +80,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    solve_batch of each (device busy, launches, host syncs); and a small
    CLS instance with the same kinds of boxes through the ladder on the
    card and on the CPU (equal statuses, objvals within 2 * gaptol).
-   Then the branch-and-bound (``core/branchbound.py::solve_misdp``, the
-   bb path): a small CLS (10 features) solved on the card and on the CPU
+   Then the host branch-and-bound loop (``core/branchbound.py::
+   solve_misdp`` with ``bb.turbo="off"``, the bb path): a small CLS (10
+   features) solved on the card and on the CPU
    (the same status, objectives within 1e-4 relative; both node counts
-   logged), then ``bench_families.py``'s cls_32 at B=32, default settings
-   and its node cap of 4000 on the card: OPTIMAL, the objective within
+   logged), then ``bench_families.py``'s cls_32 at B=32, otherwise default
+   settings and its node cap of 4000 on the card: OPTIMAL, the objective within
    1e-4 relative of the optimum BENCH_FAM_CLS32.json records for the JAX
    package (BB_OPTIMUM), the incumbent feasible by an independent numpy
    check (each block's smallest eigenvalue, the LP rows, the bounds and
@@ -93,6 +94,22 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    nodes/s, the node store (native or Python heap) are logged, and one
    profiled run of the same solve gives device busy time and host syncs
    per batch.
+   Then the device-resident tree (``core/turbo.py``, the turbo path):
+   the small CLS with ``bb.turbo="on"`` on the card and on the CPU (the
+   same status and optimum within 1e-4 relative), then cls_32 at B=32 at
+   default settings ("auto" engages turbo at once on the card): a spy
+   shows that ``solve_turbo`` ran and did not bail; OPTIMAL at the same
+   optimum, the incumbent feasible, #1 launched in the IPM and in
+   ``psd_feasible``; nodes, rounds, the widths of the batch ramp, IPM
+   iterations, solver calls, heuristic incumbents, wall and nodes/s
+   beside the host loop's tree; a profiled run for device busy time and
+   the host syncs by kind (at most 3 of ``core/turbo.py``'s own a round
+   and one a chunk, and no per-round read at any other of its lines);
+   ``min_k_partition(12, 3, 0.6, seed=1)`` at B=8 through
+   ``solve_turbo`` (no bail, optimum 30.0 within 1e-4 relative; rung
+   solves logged); and #1 against its plain version on every candidate
+   point ``psd_feasible`` saw in the cls_32 tree (the same NaN flag per
+   matrix; a mismatch is logged with its lambda_min and fails).
 5. refine path: the same four requests with phase32="refine" (the
    non-fused direction, probe rule, probe kernel): every request must
    launch the probe kernel and the three df32 kernels.  A direct request
@@ -136,7 +153,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    take two thirds of the run).
 
 The kernel launch counters are set to 0 just before each path (float64,
-sdpi, bb, refine, fused, on_pallas, refine_pallas, lite_pallas) and read
+sdpi, bb, turbo, refine, fused, on_pallas, refine_pallas, lite_pallas) and read
 just after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
@@ -160,9 +177,11 @@ import torch
 
 from scipsdp_tpu_torch import _build
 from scipsdp_tpu_torch.core import sdpi as sdpi_module
+from scipsdp_tpu_torch.core import turbo
 from scipsdp_tpu_torch.core.branchbound import solve_misdp
 from scipsdp_tpu_torch.core.sdpi import SDPInterface
-from scipsdp_tpu_torch.models.families import cardinality_least_squares
+from scipsdp_tpu_torch.models.families import (cardinality_least_squares,
+                                               min_k_partition)
 from scipsdp_tpu_torch.models.problem import densify
 from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops import df32, fused, kernels
@@ -1557,20 +1576,25 @@ def bb_summary(res, wall) -> dict:
             "nodes_per_s": st.nodes / wall}
 
 
-def bb_phase(card: str) -> dict:
-    """The B&B (``core/branchbound.py::solve_misdp``) on the card.  A small
-    CLS solved on the card and on the CPU: the same status and optimum
-    within BB_REL.  Then cls_32 at B=32, default settings and the node
-    cap, with every launch counter set to 0 just before and read just
-    after: OPTIMAL, the objective within BB_REL of BB_OPTIMUM, the
-    incumbent feasible by incumbent_violation at the settings' feastol,
-    the probe kernel launched.  Then tree_profile of the same solve
-    (device busy, launches, host syncs per batch).  Returns the counts."""
+def bb_settings(**bb) -> Settings:
+    return Settings(bb=dataclasses.replace(Settings().bb, **bb))
+
+
+def bb_phase(card: str) -> tuple:
+    """The host B&B loop (``core/branchbound.py::solve_misdp`` with
+    ``bb.turbo="off"``) on the card.  A small CLS solved on the card and
+    on the CPU: the same status and optimum within BB_REL.  Then cls_32 at
+    B=32, otherwise default settings and the node cap, with every launch
+    counter set to 0 just before and read just after: OPTIMAL, the
+    objective within BB_REL of BB_OPTIMUM, the incumbent feasible by
+    incumbent_violation at the settings' feastol, the probe kernel
+    launched.  Then tree_profile of the same solve (device busy, launches,
+    host syncs per batch).  Returns the counts and the tree's summary."""
     small = cardinality_least_squares(*BB_SMALL[:3], seed=BB_SMALL[3])
     res = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        res[dev] = solve_misdp(small, device=dev)
+        res[dev] = solve_misdp(small, bb_settings(turbo="off"), device=dev)
         res[dev] = bb_summary(res[dev], time.perf_counter() - t0)
     ref, out = res["cpu"], res["cuda"]
     if out["status"] != ref["status"] or abs(
@@ -1580,8 +1604,8 @@ def bb_phase(card: str) -> dict:
     log("bb_cpu_reference", instance="cls_10x20", card=out, cpu=ref)
 
     prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
-    settings = Settings(bb=dataclasses.replace(
-        Settings().bb, batch_size=BB_BATCH, node_limit=BB_NODE_CAP))
+    settings = bb_settings(batch_size=BB_BATCH, node_limit=BB_NODE_CAP,
+                           turbo="off")
 
     def run():
         return solve_misdp(prob, settings)
@@ -1615,6 +1639,240 @@ def bb_phase(card: str) -> dict:
         host_syncs_per_batch=prof["host_syncs"] / out.stats.relax_solves,
         device_idle_share=1.0 - 1e-6 * prof["device_busy_us"] / wall,
         **prof)
+    return launches, {**summary, "device_idle_share": 1.0 - 1e-6
+                      * prof["device_busy_us"] / wall,
+                      "host_syncs_per_batch": prof["host_syncs"]
+                      / out.stats.relax_solves}
+
+
+# the turbo path: the device-resident tree (core/turbo.py), which "auto"
+# engages at once on the card; mkp_12 at B = 8 through solve_turbo, held
+# to its known optimum (tests/test_families.py, bench.py:73's rule)
+TURBO_MKP = (12, 3, 0.6, 1)        # nvertices, k, density, seed
+TURBO_MKP_BATCH = 8
+TURBO_MKP_OPTIMUM = 30.0
+
+
+class TurboSpy:
+    """What the turbo path did inside a ``with`` block: ``solve_turbo``'s
+    results, the widths ``make_round`` built and the chunks they ran,
+    ``psd_feasible``'s calls, the #1 launches inside them and their
+    inputs (data, candidate points, check tolerance)."""
+
+    NAMES = ("solve_turbo", "make_round", "psd_feasible")
+
+    def __init__(self):
+        self.results, self.widths, self.points = [], [], []
+        self.chunks = self.psd_calls = self.psd_launches = 0
+
+    def __enter__(self):
+        self.saved = {k: getattr(turbo, k) for k in self.NAMES}
+        orig = self.saved
+
+        def solve_turbo(*a, **kw):
+            res = orig["solve_turbo"](*a, **kw)
+            self.results.append(res)
+            return res
+
+        def make_round(settings, integral, B, *a, **kw):
+            self.widths.append(B)
+            chunk = orig["make_round"](settings, integral, B, *a, **kw)
+
+            def counted(*ca):
+                self.chunks += 1
+                return chunk(*ca)
+            return counted
+
+        def psd_feasible(data, yc, chktol, feastol, ipms):
+            before = kernels.cholesky_lanes.launches
+            ok = orig["psd_feasible"](data, yc, chktol, feastol, ipms)
+            self.psd_calls += 1
+            self.psd_launches += kernels.cholesky_lanes.launches - before
+            self.points.append((data, yc, chktol))
+            return ok
+
+        turbo.solve_turbo = solve_turbo
+        turbo.make_round = make_round
+        turbo.psd_feasible = psd_feasible
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(turbo, k, v)
+
+
+def turbo_read_lines() -> dict:
+    """core/turbo.py's host reads, tagged in the source: line -> "chunk"
+    (the summary) or "round" (whether a round runs, each rung's test)."""
+    lines = pathlib.Path(turbo.__file__).read_text().splitlines()
+    return {i + 1: ("chunk" if "host read: the chunk" in line else "round")
+            for i, line in enumerate(lines) if "# host read:" in line}
+
+
+def turbo_syncs(sites: list, rounds: int, chunks: int, widths: int) -> dict:
+    """Host syncs of one turbo tree by kind from tree_profile's
+    ``sync_sites`` ((site, count) pairs); raises if core/turbo.py read
+    more than 3 times a round plus once a chunk, or read at an untagged
+    line more often than once a width plus once (the set-up copies and
+    the incumbent): a frontier tensor read inside the loop would."""
+    tags = turbo_read_lines()
+    out = {"round": 0, "chunk": 0, "turbo_setup": 0, "ipm_and_rest": 0}
+    for site, n in sites:
+        name, line = site.rsplit(":", 1)
+        if name != "turbo.py":
+            out["ipm_and_rest"] += n
+        elif int(line) in tags:
+            out[tags[int(line)]] += n
+        else:
+            if n > widths + 1:
+                raise AssertionError(f"turbo: {n} host syncs at {site}, "
+                                     f"an untagged line, in {rounds} rounds")
+            out["turbo_setup"] += n
+    if out["round"] > 3 * rounds or out["chunk"] != chunks:
+        raise AssertionError(f"turbo: host reads {out} in {rounds} rounds "
+                             f"and {chunks} chunks")
+    return {**out, "turbo_reads_per_round": out["round"] / rounds,
+            "ipm_syncs_per_round": out["ipm_and_rest"] / rounds}
+
+
+def psd_probe_check(points) -> dict:
+    """#1 against its plain version on psd_feasible's real inputs: every
+    candidate point's shifted float32 stacks (turbo.probe_stacks) through
+    kernels.cholesky_lanes and kernels.cholesky_lanes_plain; the NaN flag
+    of each matrix must be equal.  A point where they differ fails the
+    phase, logged with its lambda_min (float64).  Returns the counts and
+    the point nearest the edge."""
+    nmat = npts = 0
+    nearest = np.inf
+    bad = []
+    for data, yc, chktol in points:
+        for t, Zs in enumerate(turbo.probe_stacks(data, yc, chktol)):
+            flat = Zs.reshape(-1, *Zs.shape[-2:]).contiguous()
+            fk = torch.isnan(kernels.cholesky_lanes(flat)).flatten(1).any(1)
+            fp = torch.isnan(kernels.cholesky_lanes_plain(flat)).flatten(
+                1).any(1)
+            lam = torch.linalg.eigvalsh(flat.double())[:, 0]
+            nearest = min(nearest, float(lam.abs().min()))
+            for i in torch.nonzero(fk != fp).flatten().tolist():
+                bad.append({"bucket": t, "matrix": i,
+                            "kernel_psd": not bool(fk[i]),
+                            "plain_psd": not bool(fp[i]),
+                            "lambda_min": float(lam[i])})
+            nmat += flat.shape[0]
+        npts += yc.shape[0]
+    if bad:
+        log("turbo_probe_mismatch", mismatches=bad[:20], count=len(bad))
+        raise AssertionError(f"turbo: cholesky_lanes and its plain version "
+                             f"disagree on {len(bad)} of {nmat} candidate "
+                             f"matrices")
+    return {"points": npts, "matrices": nmat,
+            "nearest_lambda_min_to_edge": nearest}
+
+
+def turbo_phase(card: str, host_tree: dict) -> dict:
+    """The device-resident tree (``core/turbo.py``).  A small CLS with
+    ``bb.turbo="on"`` on the card and on the CPU: the same status and
+    optimum within BB_REL.  Then cls_32 at B=32, default settings ("auto"
+    engages turbo at once on the card) and the node cap, every launch
+    counter set to 0 just before and read just after: ``solve_turbo`` ran
+    and did not bail, OPTIMAL within BB_REL of BB_OPTIMUM, the incumbent
+    feasible, #1 launched in the IPM and in ``psd_feasible``; the tree
+    beside the host loop's (``host_tree``); tree_profile of the same
+    solve, its host syncs by kind (turbo_syncs).  Then mkp_12 at B=8
+    through ``solve_turbo`` (no bail, the optimum 30.0), and #1 against
+    its plain version on every candidate point of the cls_32 tree
+    (psd_probe_check).  Returns the counts of the cls_32 run."""
+    small = cardinality_least_squares(*BB_SMALL[:3], seed=BB_SMALL[3])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        with TurboSpy() as spy:
+            t0 = time.perf_counter()
+            out = solve_misdp(small, bb_settings(turbo="on"), device=dev)
+            res[dev] = bb_summary(out, time.perf_counter() - t0)
+        if len(spy.results) != 1 or spy.results[0] is None:
+            raise AssertionError(f"turbo small CLS on {dev}: solve_turbo "
+                                 f"results {spy.results}")
+    ref, out = res["cpu"], res["cuda"]
+    if out["status"] != ref["status"] or abs(
+            out["objval"] - ref["objval"]) > BB_REL * abs(ref["objval"]):
+        raise AssertionError(f"turbo small CLS: {out} on the card, {ref} "
+                             f"on the CPU")
+    log("turbo_cpu_reference", instance="cls_10x20", card=out, cpu=ref)
+
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    settings = bb_settings(batch_size=BB_BATCH, node_limit=BB_NODE_CAP)
+    spies = []
+
+    def run():
+        with TurboSpy() as spy:
+            spies.append(spy)
+            return solve_misdp(prob, settings)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    spy = spies[0]
+    summary = bb_summary(out, wall)
+    if len(spy.results) != 1 or spy.results[0] is None:
+        raise AssertionError(f"turbo cls_32: solve_turbo results "
+                             f"{spy.results}, want one that did not bail")
+    if out.status.name != "OPTIMAL" or abs(
+            out.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+        raise AssertionError(f"turbo cls_32: {summary}, want OPTIMAL at "
+                             f"{BB_OPTIMUM}")
+    viol = incumbent_violation(prob, out.best_y)
+    if not all(v <= settings.bb.feastol for v in viol.values()):
+        raise AssertionError(f"turbo cls_32: incumbent infeasible: {viol}")
+    ipm_launches = launches["cholesky_lanes"] - spy.psd_launches
+    if spy.psd_launches == 0 or ipm_launches <= 0:
+        raise AssertionError(f"turbo cls_32: cholesky_lanes launched "
+                             f"{spy.psd_launches} times in psd_feasible, "
+                             f"{ipm_launches} in the IPM")
+    tres = spy.results[0]
+    prof = tree_profile(run)
+    sync_spy = spies[-1]
+    syncs = turbo_syncs(prof["sync_sites"], sync_spy.results[0].rounds,
+                        sync_spy.chunks, len(sync_spy.widths))
+    idle = 1.0 - 1e-6 * prof["device_busy_us"] / wall
+    log("turbo_solve", instance="cls_32", batch=BB_BATCH,
+        node_cap=BB_NODE_CAP, card=card, **summary,
+        rounds=tres.rounds, chunks=spy.chunks, widths=spy.widths,
+        nsolves=tres.nsolves, nheur=tres.nheur,
+        rel_err_vs_jax_optimum=abs(out.objval - BB_OPTIMUM) / BB_OPTIMUM,
+        incumbent_violation=viol, launches=launches,
+        cholesky_lanes_ipm=ipm_launches,
+        cholesky_lanes_psd_feasible=spy.psd_launches,
+        psd_feasible_calls=spy.psd_calls,
+        cholesky_lanes_per_round=launches["cholesky_lanes"] / tres.rounds,
+        host_syncs_per_round=prof["host_syncs"] / tres.rounds,
+        syncs_by_kind=syncs, device_idle_share=idle, **prof,
+        host_loop=host_tree, wall_host_over_turbo=host_tree["wall_s"] / wall)
+
+    mkp = min_k_partition(*TURBO_MKP[:3], seed=TURBO_MKP[3])
+    dense = densify(mkp)
+    m = dense.nvars
+    ms = bb_settings(batch_size=TURBO_MKP_BATCH)
+    t0 = time.perf_counter()
+    mres = turbo.solve_turbo(dense, mkp, ms, mkp.lb[:m], mkp.ub[:m], np.inf,
+                             None, rounds_per_dispatch=ms.bb.turbo_rounds)
+    mwall = time.perf_counter() - t0
+    if mres is None or abs(mres.inc_val - TURBO_MKP_OPTIMUM) > 1e-4 * max(
+            1.0, TURBO_MKP_OPTIMUM):
+        raise AssertionError(f"turbo mkp_12: {mres}, want "
+                             f"{TURBO_MKP_OPTIMUM} without a bail")
+    log("turbo_mkp", instance="mkp_12", batch=TURBO_MKP_BATCH, wall_s=mwall,
+        inc_val=mres.inc_val, dual_bound=mres.dual_bound, nodes=mres.nodes,
+        rounds=mres.rounds, nsolves=mres.nsolves,
+        rung_solves=mres.nsolves - mres.rounds, iters=mres.iters,
+        nheur=mres.nheur, nunsolved=mres.nunsolved,
+        nodes_per_s=mres.nodes / mwall)
+
+    log("turbo_probe_check", instance="cls_32", card=card,
+        psd_feasible_calls=len(spy.points), **psd_probe_check(spy.points))
     return launches
 
 
@@ -1984,7 +2242,8 @@ def main() -> int:
     paths["f64"], f64_outs = f64_phase(cases, settings)
     paths["sdpi"] = sdpi_phase(cases[0], settings, f64_outs[0], device)
     sdpi_cpu_reference(device, settings)
-    paths["bb"] = bb_phase(card)
+    paths["bb"], host_tree = bb_phase(card)
+    paths["turbo"] = turbo_phase(card, host_tree)
     paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
     paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
     paths.update(pallas_phase(cases, pallas, f64_outs))

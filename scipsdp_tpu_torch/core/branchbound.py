@@ -22,14 +22,18 @@ Plugin roles folded in, as in the JAX package:
   propagation conflicts, used for bound propagation at every node.
 
 The loop runs the nonlinear B&B (``solve_sdps = 1``) on one device: the
-card unless ``device="cpu"`` is given, with no fall-back to the CPU.  What
-the JAX package runs elsewhere raises ``NotImplementedError`` here, so a
-setting never silently changes the algorithm: the device-resident tree
-(``bb.turbo="on"``; ``"auto"`` runs this host loop to the end), the LP
-outer approximation (``solve_sdps = 0``), the device mesh and multi-host
-sync hook, and every option that reaches the probing module (inner-LP
-heuristic, analytic-center warm starts, OBBT, rounding-problem warm starts,
-Slater statistics, fractional diving).
+card unless ``device="cpu"`` is given, with no fall-back to the CPU.  When
+the problem fits its feature set (``core/turbo.py::eligible``), the tree
+runs device-resident in ``core/turbo.py::solve_turbo`` instead, engaged as
+in the JAX package: ``bb.turbo="on"`` at once on any device; ``"auto"`` at
+once on the card and, on the CPU, by handing the host loop's frontier over
+after three batches once it holds 2B nodes; the host loop takes over when
+turbo bails.  What the JAX package runs elsewhere raises
+``NotImplementedError`` here, so a setting never silently changes the
+algorithm: the LP outer approximation (``solve_sdps = 0``), the device mesh
+and multi-host sync hook, and every option that reaches the probing module
+(inner-LP heuristic, analytic-center warm starts, OBBT, rounding-problem
+warm starts, Slater statistics, fractional diving).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from typing import List, Optional
 import numpy as np
 
 from scipsdp_tpu_torch.core import rank1 as r1
+from scipsdp_tpu_torch.core import turbo as _turbo
 from scipsdp_tpu_torch.core.branching import select_branch_var
 from scipsdp_tpu_torch.core.feascheck import check_points
 from scipsdp_tpu_torch.core.presolve_sdp import (postsolve_solution,
@@ -153,8 +158,6 @@ def _unported_options(settings: Settings, sync_hook=None) -> List[str]:
     ports it; ``solve_misdp`` raises ``NotImplementedError`` naming them."""
     bb = settings.bb
     out = []
-    if bb.turbo == "on":
-        out.append("bb.turbo='on' (device-resident tree, Queue 1 item 4)")
     if settings.solve_sdps == 0:
         out.append("solve_sdps=0 (LP outer approximation with eigenvector "
                    "cuts, Queue 1 item 6)")
@@ -591,6 +594,62 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         if not sym_group.nontrivial:
             sym_group = None
 
+    # device-resident B&B (core/turbo.py): when the problem fits turbo's
+    # feature set, the whole tree loop runs on the device; the host loop
+    # below remains the general and fallback engine.  Engagement as in the
+    # JAX package: at once on the card (which JAX keys to a non-CPU
+    # backend) or with "on"; on the CPU with "auto" the host loop runs
+    # first and hands its frontier over once the tree proves big
+    turbo_ok = (_turbo.eligible(prob, sol.dense, settings, False)
+                and checkpoint is None and not resume
+                and sync_hook is None and sym_group is None
+                and bb.slatercheck == 0)
+    turbo_now = turbo_ok and (sol.iface.device.type == "cuda"
+                              or bb.turbo == "on")
+    turbo_deferred = turbo_ok and not turbo_now
+
+    def add_turbo_stats(tres) -> None:
+        stats.nodes += tres.nodes
+        stats.relax_solves += tres.rounds
+        stats.ipm_iterations += tres.iters
+        stats.solver_calls += tres.nsolves
+        stats.heur_found += tres.nheur
+        stats.ndirect += tres.ndirect
+        stats.nunsolved += tres.nunsolved
+
+    if turbo_now:
+        tres = _turbo.solve_turbo(
+            sol.dense, prob, settings, root_lb, root_ub, incumbent_val,
+            incumbent_y, data=sol.iface.data,
+            rounds_per_dispatch=bb.turbo_rounds)
+        if tres is not None:
+            add_turbo_stats(tres)
+            stats.wall_time = time.time() - t0
+            stats.solve_time = stats.wall_time
+            inc_y = tres.inc_y
+            if tres.hit_node_limit or tres.hit_time_limit:
+                status = (SolveStatus.NODE_LIMIT if tres.hit_node_limit
+                          else SolveStatus.TIME_LIMIT)
+                gap = (abs(tres.inc_val - tres.dual_bound)
+                       / max(1e-9, abs(tres.inc_val))
+                       if inc_y is not None else np.inf)
+                return BBResult(
+                    status,
+                    (prob.external_objval(tres.inc_val)
+                     if inc_y is not None else None),
+                    to_user_space(inc_y),
+                    prob.external_objval(tres.dual_bound), gap, stats)
+            if inc_y is None:
+                return BBResult(SolveStatus.INFEASIBLE, None, None,
+                                prob.external_objval(np.inf), 0.0, stats)
+            return BBResult(
+                SolveStatus.OPTIMAL,
+                prob.external_objval(tres.inc_val),
+                to_user_space(inc_y),
+                prob.external_objval(tres.inc_val), 0.0, stats)
+        # turbo bailed (overflow / hard instances): fall through to the
+        # host loop, which implements the full recovery ladder
+
     def _push_node(node: _Node, prio: float) -> None:
         frontier.push(node.lb, node.ub, prio, node.depth,
                       side=(node.bound, node.cuts, node.requeues,
@@ -616,6 +675,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
 
     unbounded = False
     hit_limit: Optional[SolveStatus] = None
+    turbo_open_bound = np.inf   # open bound of a limit-hit turbo handoff
 
     while True:
         if hit_limit is None and stats.nodes >= bb.node_limit:
@@ -624,6 +684,46 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
             hit_limit = SolveStatus.TIME_LIMIT
         if hit_limit is not None or not len(frontier):
             break
+
+        # deferred turbo engagement (the CPU policy above): once the host
+        # loop proves the tree large, ship the WHOLE frontier to the
+        # device-resident path
+        if (turbo_deferred and stats.relax_solves >= 3
+                and len(frontier) >= 2 * bb.batch_size):
+            popped = frontier.pop_upto(len(frontier))
+            turbo_deferred = False
+            if any(side[1] for (_, _, _, _, side) in popped):
+                # nodes carry node-local cuts turbo cannot represent
+                for (nlb, nub, nprio, ndepth, side) in popped:
+                    frontier.push(nlb, nub, nprio, ndepth, side=side)
+            else:
+                init_nodes = [(nlb, nub, side[0])
+                              for (nlb, nub, _p, _d, side) in popped]
+                tbb = dataclasses.replace(
+                    bb, node_limit=max(bb.node_limit - stats.nodes, 1),
+                    time_limit=max(bb.time_limit - (time.time() - t0), 1.0))
+                tres = _turbo.solve_turbo(
+                    sol.dense, prob, dataclasses.replace(settings, bb=tbb),
+                    root_lb, root_ub, incumbent_val, incumbent_y,
+                    data=sol.iface.data,
+                    rounds_per_dispatch=bb.turbo_rounds,
+                    init_nodes=init_nodes)
+                if tres is None:
+                    for (nlb, nub, nprio, ndepth, side) in popped:
+                        frontier.push(nlb, nub, nprio, ndepth, side=side)
+                else:
+                    add_turbo_stats(tres)
+                    if (tres.inc_y is not None
+                            and tres.inc_val < incumbent_val - 1e-12):
+                        incumbent_val = float(tres.inc_val)
+                        incumbent_y = np.asarray(tres.inc_y)
+                    if tres.hit_node_limit:
+                        hit_limit = SolveStatus.NODE_LIMIT
+                        turbo_open_bound = tres.dual_bound
+                    elif tres.hit_time_limit:
+                        hit_limit = SolveStatus.TIME_LIMIT
+                        turbo_open_bound = tres.dual_bound
+                    continue   # frontier drained: loop exits via the top
 
         # bound pruning slack: rank-1 heuristic incumbents are only
         # ~feastol-accurate, so close the tree at a matching relative gap
@@ -1041,7 +1141,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         return BBResult(SolveStatus.UNBOUNDED, None, None,
                         -np.inf * prob.objsense, np.inf, stats)
 
-    dual_bound_internal = incumbent_val
+    dual_bound_internal = min(incumbent_val, turbo_open_bound)
     if len(frontier):
         dual_bound_internal = min(
             dual_bound_internal,

@@ -10,9 +10,12 @@ that test, so both packages are held to the same instance.
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from scipsdp_tpu.models import families as jfam
-from scipsdp_tpu.models.problem import (INF, LinearConstraints, MISDP,
+from scipsdp_tpu.models.problem import (INF, IndicatorLink,
+                                        LinearConstraints, MISDP,
                                         QuadConstraint, SDPBlock)
 from test_buckets import _hetero_prob
 from test_intree_prop import _prob_matrixview
@@ -113,6 +116,42 @@ def onevar_bound_prob():
     return MISDP(nvars=2, obj=np.zeros(2), lb=np.array([-INF, 0.0]),
                  ub=np.array([10.0, 0.0]), integral=np.zeros(2, bool),
                  blocks=[blk], lp=LinearConstraints.empty(), name="tb1")
+
+
+def indicator_prob():
+    """Indicator links built as tests/test_writers.py builds one
+    (``IndicatorLink(binvar, slackvar, row)`` on an LP row), under a PSD
+    block instead of its quadratic row: min x0 + 2 x1 - 1.5 z0 - 1.2 z1
+    with [[x0, 1], [1, x1]] PSD, x_i + s_i >= 1, z0 + z1 <= 1 and
+    z_i = 1 => s_i = 0.  The relaxation takes z fractional or sets a z with
+    its slack positive, so the tree branches on fractions and enforces
+    the links."""
+    blk = SDPBlock(size=2, var=[0, 1], row=[0, 1], col=[0, 1],
+                   val=[1.0, 1.0], const_row=[1], const_col=[0],
+                   const_val=[-1.0])
+    lp = LinearConstraints.from_rows([([0, 4], [1.0, 1.0], 1.0, INF),
+                                      ([1, 5], [1.0, 1.0], 1.0, INF),
+                                      ([2, 3], [1.0, 1.0], -INF, 1.0)])
+    return MISDP(nvars=6, obj=np.array([1.0, 2.0, -1.5, -1.2, 0.0, 0.0]),
+                 lb=np.zeros(6), ub=np.array([4.0, 4.0, 1.0, 1.0, 4.0, 4.0]),
+                 integral=np.array([False, False, True, True, False, False]),
+                 blocks=[blk], lp=lp,
+                 indicators=[IndicatorLink(binvar=2, slackvar=4, row=0),
+                             IndicatorLink(binvar=3, slackvar=5, row=1)],
+                 name="ind")
+
+
+@pytest.fixture(scope="module")
+def torch_one_thread():
+    """torch's CPU ops on one thread while a module runs, the caller's
+    count restored after: the trees' tensors are tiny, and the OpenMP
+    workers of eager ops spin against the other test processes on the
+    machine (one file took 6 minutes beside one other worker, 70 s
+    alone)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 # the solve instances of the parity tests: (builder, batch_size)

@@ -16,7 +16,9 @@ against the JAX package's on the CPU.
   resume (tests/test_checkpoint.py's two checks, which read an instance
   file that is not in the repository, rebuilt on a generated CLS).
 * Every path that is not ported raises ``NotImplementedError``, and
-  ``device=None`` means the card.
+  ``device=None`` means the card.  ``bb.turbo="auto"`` on the CPU runs
+  the host loop first (``tests/test_torch_turbo_bb.py`` holds the
+  device-resident tree and its engagement to JAX).
 """
 
 import dataclasses
@@ -88,8 +90,8 @@ def test_solve_parity(name, sym):
 
 def test_default_settings_solve():
     """Full defaults in both packages (randomized rounding on, turbo
-    "auto": JAX's CPU policy never hands this small tree over, the port
-    runs its host loop): status and optimum only."""
+    "auto": the CPU policy of both never hands this small tree over):
+    status and optimum only."""
     prob = jfam.cardinality_least_squares(5, 8, 2)
     rj = jax_solve_misdp(prob)
     rt = tbb.solve_misdp(problem_from_jax(prob), device="cpu")
@@ -161,7 +163,6 @@ def test_resume_finished_checkpoint(tmp_path):
 
 
 UNPORTED = {
-    "turbo_on": dict(bb=dict(turbo="on")),
     "lp_mode": dict(solve_sdps=0),
     "use_mesh": dict(use_mesh=True),
     "sync_hook": dict(),
@@ -188,12 +189,31 @@ def test_unported_paths_raise(case):
                         sync_hook=hook, device="cpu")
 
 
-def test_turbo_auto_runs_the_host_loop():
-    """bb.turbo="auto" (the default) solves with the host loop."""
-    prob = problem_from_jax(SOLVE["conflict"][0]())
+def test_turbo_auto_runs_the_host_loop(monkeypatch):
+    """bb.turbo="auto" (the default) on the CPU runs the host loop first:
+    a tree that never holds 2B open nodes after three batches solves
+    there without calling solve_turbo; a larger one hands its frontier
+    over after its third batch."""
+    from scipsdp_tpu_torch.core import turbo as tturbo
+    calls = []
+    orig = tturbo.solve_turbo
+
+    def spy(*a, **kw):
+        calls.append(len(kw["init_nodes"]) if "init_nodes" in kw else None)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tturbo, "solve_turbo", spy)
     s = settings_from_jax(Settings(bb=BBSettings(turbo="auto")))
-    res = tbb.solve_misdp(prob, s, device="cpu")
+    res = tbb.solve_misdp(problem_from_jax(SOLVE["conflict"][0]()), s,
+                          device="cpu")
     assert res.status == SolveStatus.OPTIMAL and res.stats.relax_solves > 0
+    assert calls == []
+    s = settings_from_jax(Settings(bb=BBSettings(turbo="auto",
+                                                 batch_size=4)))
+    res = tbb.solve_misdp(problem_from_jax(
+        jfam.cardinality_least_squares(12, 24, 4, seed=2)), s, device="cpu")
+    assert res.status == SolveStatus.OPTIMAL
+    assert len(calls) == 1 and calls[0] >= 8
 
 
 def test_device_none_means_the_card(monkeypatch):
