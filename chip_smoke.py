@@ -148,22 +148,53 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. profile: per request and route one torch.profiler pass (device busy
    time, kernel launches in all and per iteration, the ops with the most
    device time) and the host syncs of one solve by source line (CUDA sync
-   debug mode); the non-fused refine routes, the pallas routes and the
-   "on" tier on library factors on the direct requests only (the profiles
-   take two thirds of the run).
+   debug mode); the fused refine route on every request, the others on
+   the direct requests only (the profiles take a third of the run).
+12. probing path (``core/probing.py``) on cls_32: each function on the
+   card with its wall, batched solves, #1 launches and host syncs (one
+   call, in CUDA sync debug mode), held to the same call on the CPU with
+   the card's IPM settings on the same inputs: ``slater_check`` and
+   ``analytic_center`` on the root box and PROBE_BOXES request boxes
+   (flags equal; every center feasible by ``check_points``),
+   ``obbt_root`` over the binaries and, with the optimum as a cutoff row,
+   over the continuous variables (the same count of tightenings, bounds
+   within 1e-6), ``fracdive`` on boxes that leave DIVE_FREE binaries free
+   (flags equal, at least one point found, each feasible), the inner-LP
+   heuristic as the root calls it and from the root's k largest z (ok
+   flags equal, a feasible point within 1e-3 of the CPU's) and the
+   rounding problems from the root's X and y (the same action).  Then
+   two trees through ``solve_misdp``: the root options (inner-LP
+   heuristic, OBBT, analytic-center warm starts) at "auto": turbo
+   engages without a bail, OPTIMAL at BB_OPTIMUM within 1e-4 relative,
+   the incumbent feasible and inside the OBBT bounds, the probing's
+   share of the wall; and the in-tree options (Slater
+   statistics, diving, OBBT, rounding-problem warm starts) in the host
+   loop under PROBE_TREE_CAP nodes: the bound at most the optimum, any
+   incumbent feasible, the Slater, rounding and heuristic counters.
+13. LP path (``solve_sdps=0``): ``separate_eigenvector_cuts`` at cls_32's
+   root LP point on the card against the CPU (valid flags equal,
+   eigenvalues within 1e-9 (1 + |lam|), each valid cut within 1e-7
+   relative, a repeated eigenvalue's cuts as their eigenspace sum),
+   both timed, and batched float64 ``eigh`` at n = 65 for 1 and 32
+   matrices; then cls_32 at B=32 (node cap 4000, LP_TIME_LIMIT) to
+   OPTIMAL at BB_OPTIMUM (or a bound at most the optimum and a feasible
+   incumbent) and mkp_12 at B=8 to 30.0: nodes, LP rounds, separation
+   rounds, cuts, exact enforcement solves and their #1 launches, and the
+   walls of HiGHS, the separation and the rest.
 
 The kernel launch counters are set to 0 just before each path (float64,
-sdpi, bb, turbo, refine, fused, on_pallas, refine_pallas, lite_pallas) and read
-just after.  The line before the
+sdpi, bb, turbo, refine, fused, on_pallas, refine_pallas, lite_pallas,
+probing, lpmode) and read just after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
-run takes 7 to 10 minutes on an H100, the build included.
+run takes about 11 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -176,15 +207,19 @@ import numpy as np
 import torch
 
 from scipsdp_tpu_torch import _build
+from scipsdp_tpu_torch.core import branchbound as bb_module
+from scipsdp_tpu_torch.core import probing
 from scipsdp_tpu_torch.core import sdpi as sdpi_module
 from scipsdp_tpu_torch.core import turbo
 from scipsdp_tpu_torch.core.branchbound import solve_misdp
+from scipsdp_tpu_torch.core.feascheck import check_points
 from scipsdp_tpu_torch.core.sdpi import SDPInterface
 from scipsdp_tpu_torch.models.families import (cardinality_least_squares,
                                                min_k_partition)
-from scipsdp_tpu_torch.models.problem import densify
+from scipsdp_tpu_torch.models.problem import MISDP, densify
 from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops import df32, fused, kernels
+from scipsdp_tpu_torch.ops.cuts import separate_eigenvector_cuts
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
 from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
@@ -270,11 +305,15 @@ PEAK_TF32_FLOPS = 495e12
 # (leading shape, n, s) of the matrix stacks cholesky_lanes is checked and
 # timed at (s as in TRI_SHAPES); (32, 10) and (8, 10) are the stacked probe
 # ladders of the main path (B slots x 2*5 trials) at cls_32 B=32 and cls_64
-# B=8, (14720,) x 10 mkp_10's at B=1472
+# B=8, (14720,) x 10 mkp_10's at B=1472; (1, 10) x 1 the B = 1 solves of a
+# block-free LP (the inner-LP and rounding LPs: one 1 x 1 dummy bucket),
+# (1, 10) x 65 cls_32's B = 1 solves (primal Slater, LP mode's exact
+# enforcement)
 CHOL_SHAPES = [((3,), 5, 0), ((16,), 43, 0), ((130,), 17, 0), ((1,), 64, 0),
                ((384,), 65, 0), ((32, 10), 65, 0), ((320,), 97, 0),
                ((320,), 129, 0), ((8, 10), 129, 0), ((8, 2), 129, 4),
-               ((14720,), 10, 0), ((4,), 300, 0)]
+               ((14720,), 10, 0), ((4,), 300, 0), ((1, 10), 1, 0),
+               ((1, 10), 65, 0)]
 CHOL_MAIN = ((32, 10), 65, 0)
 DF32_TOL = 1e-11
 # the refine tier's shapes per instance: (label, mp, K n^2, LP rows P, B,
@@ -1653,52 +1692,77 @@ TURBO_MKP_BATCH = 8
 TURBO_MKP_OPTIMUM = 30.0
 
 
-class TurboSpy:
-    """What the turbo path did inside a ``with`` block: ``solve_turbo``'s
-    results, the widths ``make_round`` built and the chunks they ran,
-    ``psd_feasible``'s calls, the #1 launches inside them and their
-    inputs (data, candidate points, check tolerance)."""
+class CallSpy:
+    """Calls, results, #1 launches and wall of each call of the named
+    functions of ``module`` while a ``with`` block runs.  A ``timed`` spy
+    ends each call in torch.cuda.synchronize, so its wall holds the
+    call's device work."""
 
-    NAMES = ("solve_turbo", "make_round", "psd_feasible")
+    def __init__(self, module, names, timed=True):
+        self.module, self.names, self.timed = module, names, timed
+        self.wall = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
+        self.launches = dict.fromkeys(names, 0)
+        self.results = {k: [] for k in names}
 
-    def __init__(self):
-        self.results, self.widths, self.points = [], [], []
-        self.chunks = self.psd_calls = self.psd_launches = 0
+    def wrap(self, name, orig):
+        def call(*a, **kw):
+            l0 = kernels.cholesky_lanes.launches
+            t0 = time.perf_counter()
+            try:
+                out = orig(*a, **kw)
+            finally:
+                if self.timed:
+                    torch.cuda.synchronize()
+                self.wall[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+                self.launches[name] += kernels.cholesky_lanes.launches - l0
+            self.results[name].append(out)
+            return out
+        return call
 
     def __enter__(self):
-        self.saved = {k: getattr(turbo, k) for k in self.NAMES}
-        orig = self.saved
-
-        def solve_turbo(*a, **kw):
-            res = orig["solve_turbo"](*a, **kw)
-            self.results.append(res)
-            return res
-
-        def make_round(settings, integral, B, *a, **kw):
-            self.widths.append(B)
-            chunk = orig["make_round"](settings, integral, B, *a, **kw)
-
-            def counted(*ca):
-                self.chunks += 1
-                return chunk(*ca)
-            return counted
-
-        def psd_feasible(data, yc, chktol, feastol, ipms):
-            before = kernels.cholesky_lanes.launches
-            ok = orig["psd_feasible"](data, yc, chktol, feastol, ipms)
-            self.psd_calls += 1
-            self.psd_launches += kernels.cholesky_lanes.launches - before
-            self.points.append((data, yc, chktol))
-            return ok
-
-        turbo.solve_turbo = solve_turbo
-        turbo.make_round = make_round
-        turbo.psd_feasible = psd_feasible
+        self.saved = {k: getattr(self.module, k) for k in self.names}
+        for name, orig in self.saved.items():
+            setattr(self.module, name, self.wrap(name, orig))
         return self
 
     def __exit__(self, *exc):
         for k, v in self.saved.items():
-            setattr(turbo, k, v)
+            setattr(self.module, k, v)
+
+
+class TurboSpy(CallSpy):
+    """What the turbo path did inside a ``with`` block: ``solve_turbo``'s
+    results, the widths ``make_round`` built and the chunks they ran,
+    ``psd_feasible``'s calls, the #1 launches inside them and their
+    inputs (data, candidate points, check tolerance).  Untimed: it adds
+    no host sync to the tree."""
+
+    def __init__(self):
+        super().__init__(turbo, ("solve_turbo", "make_round",
+                                 "psd_feasible"), timed=False)
+        self.widths, self.points = [], []
+        self.chunks = 0
+
+    def wrap(self, name, orig):
+        call = super().wrap(name, orig)
+        if name == "make_round":
+            def make_round(settings, integral, B, *a, **kw):
+                self.widths.append(B)
+                chunk = call(settings, integral, B, *a, **kw)
+
+                def counted(*ca):
+                    self.chunks += 1
+                    return chunk(*ca)
+                return counted
+            return make_round
+        if name == "psd_feasible":
+            def psd_feasible(data, yc, chktol, *a):
+                self.points.append((data, yc, chktol))
+                return call(data, yc, chktol, *a)
+            return psd_feasible
+        return call
 
 
 def turbo_read_lines() -> dict:
@@ -1789,9 +1853,10 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
             t0 = time.perf_counter()
             out = solve_misdp(small, bb_settings(turbo="on"), device=dev)
             res[dev] = bb_summary(out, time.perf_counter() - t0)
-        if len(spy.results) != 1 or spy.results[0] is None:
+        tres = spy.results["solve_turbo"]
+        if len(tres) != 1 or tres[0] is None:
             raise AssertionError(f"turbo small CLS on {dev}: solve_turbo "
-                                 f"results {spy.results}")
+                                 f"results {tres}")
     ref, out = res["cpu"], res["cuda"]
     if out["status"] != ref["status"] or abs(
             out["objval"] - ref["objval"]) > BB_REL * abs(ref["objval"]):
@@ -1817,9 +1882,11 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
     launches = counts()
     spy = spies[0]
     summary = bb_summary(out, wall)
-    if len(spy.results) != 1 or spy.results[0] is None:
+    if len(spy.results["solve_turbo"]) != 1 or \
+            spy.results["solve_turbo"][0] is None:
         raise AssertionError(f"turbo cls_32: solve_turbo results "
-                             f"{spy.results}, want one that did not bail")
+                             f"{spy.results['solve_turbo']}, want one that "
+                             f"did not bail")
     if out.status.name != "OPTIMAL" or abs(
             out.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
         raise AssertionError(f"turbo cls_32: {summary}, want OPTIMAL at "
@@ -1827,15 +1894,17 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
     viol = incumbent_violation(prob, out.best_y)
     if not all(v <= settings.bb.feastol for v in viol.values()):
         raise AssertionError(f"turbo cls_32: incumbent infeasible: {viol}")
-    ipm_launches = launches["cholesky_lanes"] - spy.psd_launches
-    if spy.psd_launches == 0 or ipm_launches <= 0:
+    psd_launches = spy.launches["psd_feasible"]
+    ipm_launches = launches["cholesky_lanes"] - psd_launches
+    if psd_launches == 0 or ipm_launches <= 0:
         raise AssertionError(f"turbo cls_32: cholesky_lanes launched "
-                             f"{spy.psd_launches} times in psd_feasible, "
+                             f"{psd_launches} times in psd_feasible, "
                              f"{ipm_launches} in the IPM")
-    tres = spy.results[0]
+    tres = spy.results["solve_turbo"][0]
     prof = tree_profile(run)
     sync_spy = spies[-1]
-    syncs = turbo_syncs(prof["sync_sites"], sync_spy.results[0].rounds,
+    syncs = turbo_syncs(prof["sync_sites"],
+                        sync_spy.results["solve_turbo"][0].rounds,
                         sync_spy.chunks, len(sync_spy.widths))
     idle = 1.0 - 1e-6 * prof["device_busy_us"] / wall
     log("turbo_solve", instance="cls_32", batch=BB_BATCH,
@@ -1845,8 +1914,8 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
         rel_err_vs_jax_optimum=abs(out.objval - BB_OPTIMUM) / BB_OPTIMUM,
         incumbent_violation=viol, launches=launches,
         cholesky_lanes_ipm=ipm_launches,
-        cholesky_lanes_psd_feasible=spy.psd_launches,
-        psd_feasible_calls=spy.psd_calls,
+        cholesky_lanes_psd_feasible=psd_launches,
+        psd_feasible_calls=spy.calls["psd_feasible"],
         cholesky_lanes_per_round=launches["cholesky_lanes"] / tres.rounds,
         host_syncs_per_round=prof["host_syncs"] / tres.rounds,
         syncs_by_kind=syncs, device_idle_share=idle, **prof,
@@ -1876,6 +1945,419 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
     return launches
 
 
+# the probing path (core/probing.py) and the LP path (solve_sdps=0, with
+# ops/cuts.py) on cls_32; the LP path also on mkp_12 to its optimum
+PROBE_BOXES = 32                   # the request boxes of the functions
+DIVE_FREE = 6                      # binaries left free in a dive box
+PROBE_OBJ_TOL = 1e-4               # card against CPU, relative (the tests')
+PROBE_TREE_CAP = 8                 # node cap of the in-tree probing tree
+LP_NODE_CAP = 4000
+LP_TIME_LIMIT = 300.0              # seconds; PERF.md says where it stops
+EIGH_BATCHES = (1, 32)             # batched float64 eigh at n = 65
+
+
+def counted_call(label, fn, card) -> tuple:
+    """(output, record) of one call of ``fn`` on the card in CUDA sync
+    debug mode: its wall (the debug mode's warnings cost microseconds a
+    sync), the batched IPM solves and #1 launches inside it and its host
+    syncs (sync_sites)."""
+    with CallSpy(sdpi_module, ("ipm_solve",), timed=False) as spy:
+        l0 = kernels.cholesky_lanes.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_sites() as syncs:
+            out = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.cholesky_lanes.launches - l0
+    rec = {"function": label, "wall_s": wall,
+           "solves": spy.calls["ipm_solve"], "cholesky_lanes": launches,
+           "host_syncs": len(syncs), "card": card}
+    return out, rec
+
+
+def dive_boxes(prob, B: int, nfeat: int, free: int, rng):
+    """B boxes that fix all but ``free`` of the binary z variables to 0
+    (a random set each), so a dive of at most 8 fixings ends integral."""
+    lb, ub = np.tile(prob.lb, (B, 1)), np.tile(prob.ub, (B, 1))
+    for s in range(B):
+        fixed = nfeat + rng.permutation(nfeat)[free:]
+        lb[s, fixed] = ub[s, fixed] = 0.0
+    return lb, ub
+
+
+def probing_functions(card, prob, dense, ipm) -> dict:
+    """Each function of core/probing.py on cls_32 on the card, held to the
+    same call on the CPU with the card's IPM settings on the same inputs:
+    ``slater_check`` and ``analytic_center`` on the root box and the
+    request boxes (flags equal; every center feasible by
+    ``check_points``), ``obbt_root`` over the binaries and, with the
+    optimum as a cutoff row, over the continuous variables (tightenings
+    equal, bounds within 1e-6), ``fracdive`` on the dive boxes from the
+    card's relaxation points (flags equal, at least one point found, each
+    passing incumbent_violation in its box, objectives within
+    PROBE_OBJ_TOL), ``inner_lp_point`` as the root heuristic calls it and
+    from the root relaxation's k largest z (ok flags equal; a feasible
+    point within 1e-3 of the CPU's and passing incumbent_violation), and
+    ``rounding_problem`` from the card's root X and y (the same action; a
+    warm point's objective within PROBE_OBJ_TOL).  Returns the OBBT
+    bounds."""
+    m = prob.nvars
+    nfeat, _, k = BB_INSTANCE[:3]
+    lb, ub = node_boxes(prob, PROBE_BOXES, nfeat, np.random.default_rng(4))
+    s = Settings(ipm=ipm)
+    ifaces = {"cuda": SDPInterface(dense, s),
+              "cpu": SDPInterface(dense, s, device="cpu")}
+    card_iface = ifaces["cuda"]
+    recs = []
+
+    def both(label, make):
+        out, rec = counted_call(label, lambda: make(card_iface), card)
+        recs.append(rec)
+        return out, make(ifaces["cpu"])
+
+    def same_obj(label, y, y_cpu):
+        a, b = prob.obj @ y, prob.obj @ y_cpu
+        if abs(a - b) > PROBE_OBJ_TOL * (1 + abs(b)):
+            raise AssertionError(f"probing {label}: objective {a} on the "
+                                 f"card, {b} on the CPU")
+
+    sl, sl_cpu = both("slater_check",
+                      lambda i: probing.slater_check(i, lb, ub))
+    if not np.array_equal(sl, sl_cpu):
+        raise AssertionError(f"probing slater_check: {sl} on the card, "
+                             f"{sl_cpu} on the CPU")
+    (ac_y, ac_ok), (_, ac_ok_cpu) = both(
+        "analytic_center", lambda i: probing.analytic_center(i, lb, ub))
+    feas = check_points(card_iface.data, ac_y, lb, ub,
+                        feastol=ipm.feastol)[0].cpu().numpy()
+    if not np.array_equal(ac_ok, ac_ok_cpu) or not feas[ac_ok].all():
+        raise AssertionError(f"probing analytic_center: ok {ac_ok} on the "
+                             f"card, {ac_ok_cpu} on the CPU; feasible "
+                             f"{feas}")
+    feastol = Settings().bb.feastol
+    obbt = {}
+    for label, targets, cutoff in (
+            ("obbt_root int", np.flatnonzero(prob.integral), None),
+            ("obbt_root cont cutoff",
+             np.flatnonzero(~prob.integral), BB_OPTIMUM * (1 + BB_REL))):
+        (lo, hi, nt), (lo_c, hi_c, nt_c) = both(
+            label, lambda i: probing.obbt_root(i, prob.lb, prob.ub, targets,
+                                               cutoff, BB_BATCH, feastol))
+        fin = (np.abs(lo_c) < 1e19) & (np.abs(hi_c) < 1e19)
+        dev = float(max(np.abs(lo - lo_c)[np.abs(lo_c) < 1e19].max(),
+                        np.abs(hi - hi_c)[np.abs(hi_c) < 1e19].max()))
+        if nt != nt_c or dev > 1e-6:
+            raise AssertionError(f"probing {label}: {nt} tightenings on the "
+                                 f"card, {nt_c} on the CPU, bounds apart "
+                                 f"by {dev}")
+        recs[-1].update(tightenings=nt, max_bound_dev=dev,
+                        finite_bounds=int(fin.sum()))
+        obbt[label] = (lo, hi)
+
+    dlb, dub = dive_boxes(prob, PROBE_BOXES, nfeat, DIVE_FREE,
+                          np.random.default_rng(5))
+    res = card_iface.solve_batch(dlb, dub)
+    ok = np.isin(res.status, (int(SolverResultStatus.OPTIMAL),
+                              int(SolverResultStatus.PRESOLVED_OPTIMAL)))
+    (yd, fd), (yd_cpu, fd_cpu) = both(
+        "fracdive", lambda i: probing.fracdive(
+            i, dlb, dub, res.y, prob.integral, feastol, start_ok=ok))
+    if not np.array_equal(fd, fd_cpu) or not fd.any():
+        raise AssertionError(f"probing fracdive: feasible {fd} on the card, "
+                             f"{fd_cpu} on the CPU; want equal, one or more")
+    for i in np.flatnonzero(fd):
+        viol = incumbent_violation(prob, yd[i])
+        if max(viol.values()) > feastol or np.any(yd[i] < dlb[i] - feastol) \
+                or np.any(yd[i] > dub[i] + feastol):
+            raise AssertionError(f"probing fracdive: point {i} reported "
+                                 f"feasible, violation {viol}")
+        same_obj(f"fracdive point {i}", yd[i], yd_cpu[i])
+    recs[-1].update(feasible=int(fd.sum()), started=int(ok.sum()),
+                    free_binaries=DIVE_FREE)
+
+    root = card_iface.solve_batch(prob.lb[None], prob.ub[None])
+    z = np.flatnonzero(prob.integral)
+    y_top = np.zeros(m)
+    y_top[z[np.argsort(-root.y[0][z])[:k]]] = 1.0
+    for label, y_ref in (("inner_lp_point", None),
+                         ("inner_lp_point top-k z", y_top)):
+        (y_in, ok_in), (y_in_cpu, ok_in_cpu) = both(
+            label, lambda i: probing.inner_lp_point(prob, s, y_ref=y_ref,
+                                                    device=i.device))
+        if ok_in != ok_in_cpu:
+            raise AssertionError(f"probing {label}: feasible {ok_in} on the "
+                                 f"card, {ok_in_cpu} on the CPU")
+        dev = None
+        if ok_in:
+            viol = incumbent_violation(prob, y_in)
+            dev = float(np.abs(y_in - y_in_cpu).max())
+            if max(viol.values()) > feastol or dev > 1e-3:
+                raise AssertionError(f"probing {label}: violation {viol}, "
+                                     f"{dev} from the CPU's point")
+        recs[-1].update(feasible=bool(ok_in), max_dev_vs_cpu=dev,
+                        lp_variables=m + sum(b.size * (b.size - 1) // 2
+                                             for b in prob.blocks))
+
+    X = bb_module._Solver.buckets_to_blocks(
+        card_iface.data, [np.asarray(x[0]) for x in root.X])
+    (act, wy), (act_cpu, wy_cpu) = both(
+        "rounding_problem", lambda i: probing.rounding_problem(
+            prob, dense, s, X, root.y[0], prob.lb, prob.ub,
+            feastol=feastol, device=i.device))
+    if act != act_cpu:
+        raise AssertionError(f"probing rounding_problem: {act} on the card, "
+                             f"{act_cpu} on the CPU")
+    if act == "ok":
+        same_obj("rounding_problem", wy, wy_cpu)
+    recs[-1].update(action=act, warm_objective=(
+        None if wy is None else float(prob.obj @ wy)))
+    for rec in recs:
+        log("probing_function", instance="cls_32", boxes=PROBE_BOXES,
+            slater=sl.tolist() if rec["function"] == "slater_check"
+            else None, **rec)
+    return obbt
+
+
+def probing_phase(card: str) -> dict:
+    """The probing path.  Each function of ``core/probing.py`` on cls_32's
+    root box and request boxes (probing_functions).  Then, every launch
+    counter set to 0 just before and read just after, two trees through
+    ``solve_misdp`` on the card: the root options (inner-LP heuristic,
+    OBBT, analytic-center warm starts) at "auto": turbo engages, OPTIMAL
+    within BB_REL of BB_OPTIMUM, the incumbent feasible and inside the
+    OBBT bounds; and the in-tree options (Slater statistics, diving, OBBT,
+    rounding-problem warm starts) in the host loop under PROBE_TREE_CAP:
+    every bound at most the optimum, any incumbent feasible.  Returns the
+    counts."""
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    dense = densify(prob)
+    ipm = resolve_backend_autos(Settings(), torch.device("cuda")).ipm
+    obbt = probing_functions(card, prob, dense, ipm)
+    names = ("inner_lp_point", "analytic_center", "obbt_root", "slater_check",
+             "slater_check_primal", "fracdive", "rounding_problem")
+    feastol = Settings().bb.feastol
+
+    reset_counts()
+    root = bb_settings(batch_size=BB_BATCH, node_limit=BB_NODE_CAP,
+                       heuristic_innerlp=True, obbt_at_root=True,
+                       warmstart=True, warmstartiptype=2)
+    with TurboSpy() as tspy, CallSpy(probing, names) as pspy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_misdp(prob, root)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    root_launches = counts()
+    summary = bb_summary(out, wall)
+    tres = tspy.results["solve_turbo"]
+    if len(tres) != 1 or tres[0] is None:
+        raise AssertionError(f"probing root options: solve_turbo results "
+                             f"{tres}, want one that did not bail")
+    if out.status.name != "OPTIMAL" or abs(
+            out.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+        raise AssertionError(f"probing root options: {summary}")
+    viol = incumbent_violation(prob, out.best_y)
+    if max(viol.values()) > feastol:
+        raise AssertionError(f"probing root options: incumbent infeasible: "
+                             f"{viol}")
+    for label, (lo, hi) in obbt.items():
+        if np.any(out.best_y < lo - feastol) or np.any(
+                out.best_y > hi + feastol):
+            raise AssertionError(f"probing {label}: the bounds cut off the "
+                                 f"optimum")
+    probing_wall = sum(pspy.wall.values())
+    log("probing_root_tree", instance="cls_32", batch=BB_BATCH, card=card,
+        **summary, incumbent_violation=viol, turbo_rounds=tres[0].rounds,
+        probing_calls=pspy.calls, probing_wall_s=pspy.wall,
+        probing_share_of_wall=probing_wall / wall, launches=root_launches)
+
+    intree = bb_settings(batch_size=BB_BATCH, node_limit=PROBE_TREE_CAP,
+                         turbo="off", slatercheck=1, diving_freq=2,
+                         obbt_freq=2, warmstart=True, warmstartproject=4)
+    with CallSpy(probing, names) as pspy:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve_misdp(prob, intree)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    st = out.stats
+    summary = bb_summary(out, wall)
+    if out.dual_bound > BB_OPTIMUM * (1 + BB_REL):
+        raise AssertionError(f"probing in-tree options: bound "
+                             f"{out.dual_bound} above the optimum")
+    viol = None
+    if out.best_y is not None:
+        viol = incumbent_violation(prob, out.best_y)
+        if max(viol.values()) > feastol or out.objval < BB_OPTIMUM * (
+                1 - BB_REL):
+            raise AssertionError(f"probing in-tree options: incumbent "
+                                 f"{out.objval} infeasible: {viol}")
+    if launches["cholesky_lanes"] == 0:
+        raise AssertionError("probing: cholesky_lanes not launched")
+    log("probing_intree_tree", instance="cls_32", batch=BB_BATCH,
+        node_cap=PROBE_TREE_CAP, card=card, **summary,
+        incumbent_violation=viol,
+        slater=[st.slater_holds, st.slater_fails, st.slater_undecided],
+        slater_primal=[st.slater_primal_holds, st.slater_primal_fails,
+                       st.slater_primal_undecided],
+        roundingprobinf=st.roundingprobinf,
+        redcost_tightenings=st.redcost_tightenings,
+        probing_calls=pspy.calls, probing_wall_s=pspy.wall,
+        probing_share_of_wall=sum(pspy.wall.values()) / wall,
+        launches={k: v - root_launches[k] for k, v in launches.items()})
+    return launches
+
+
+def cut_check(card, prob) -> None:
+    """``separate_eigenvector_cuts`` at cls_32's root LP point on the card
+    against the CPU: the same ``valid`` flags, eigenvalues within
+    1e-9 (1 + |lam|), each valid cut within 1e-7 relative (a repeated
+    eigenvalue's cuts as their sum over the eigenspace, which is the same
+    whichever way it is split); both timed, and float64 ``eigh`` at n = 65
+    for EIGH_BATCHES matrices."""
+    lp = MISDP(nvars=prob.nvars, obj=prob.obj, lb=prob.lb, ub=prob.ub,
+                 integral=prob.integral, blocks=[], lp=prob.lp,
+                 name=prob.name + "_lp")
+    lp_iface = SDPInterface(densify(lp), device="cpu", lp_host=True)
+    y = lp_iface.solve_batch(prob.lb[None], prob.ub[None]).y
+    dense = densify(prob)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        data = build_ipm_data(dense, dev)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            sep = sdpi_module.to_host(separate_eigenvector_cuts(data, y))[0]
+            times.append(time.perf_counter() - t0)
+        out[dev] = (sep, float(np.median(times)))
+    (sep, ms), (ref, ms_cpu) = out["cuda"], out["cpu"]
+    nvalid = 0
+    for t in range(len(ref.lam)):
+        lam = ref.lam[t]
+        if not np.array_equal(sep.valid[t], ref.valid[t]) or np.any(
+                np.abs(sep.lam[t] - lam) > 1e-9 * (1 + np.abs(lam))):
+            raise AssertionError("lpmode cuts: flags or eigenvalues differ "
+                                 "between the card and the CPU")
+        for i, k in np.ndindex(*lam.shape[:2]):
+            lk = lam[i, k]
+            groups = np.split(np.arange(lk.size), np.flatnonzero(
+                np.diff(lk) > 1e-8 * (1 + np.abs(lk[1:]))) + 1)
+            for g in groups:
+                if not ref.valid[t][i, k, g].any():
+                    continue
+                nvalid += len(g)
+                for a, b in ((sep.coefs[t], ref.coefs[t]),
+                             (sep.rhs[t], ref.rhs[t])):
+                    ga, gb = a[i, k, g].sum(axis=0), b[i, k, g].sum(axis=0)
+                    if np.abs(ga - gb).max() > 1e-7 * (1 + np.abs(gb).max()):
+                        raise AssertionError("lpmode cuts: coefficients "
+                                             "differ between the card and "
+                                             "the CPU")
+    eigh_ms = eigh_times(dense.blocksize)
+    log("lpmode_cuts", instance="cls_32", card=card, valid_cuts=nvalid,
+        separate_ms_card=1e3 * ms, separate_ms_cpu=1e3 * ms_cpu,
+        eigh_float64_ms=eigh_ms, n=dense.blocksize,
+        eigh_ms_per_matrix={nb: v / nb for nb, v in eigh_ms.items()})
+
+
+def eigh_times(n: int) -> dict:
+    """Device ms of one batched float64 ``torch.linalg.eigh`` of
+    EIGH_BATCHES symmetric n x n matrices, after a warm-up call: a time
+    that grows with the batch as B single calls do shows a loop of
+    per-matrix solver calls."""
+    out = {}
+    for nb in EIGH_BATCHES:
+        M = torch.randn(nb, n, n, dtype=torch.float64, device="cuda")
+        M = M + M.transpose(1, 2)
+        torch.linalg.eigh(M)
+        out[nb] = event_ms(torch.linalg.eigh, (M,))
+    return out
+
+
+def lpmode_phase(card: str) -> dict:
+    """The LP path (``solve_sdps=0``).  cut_check, then, every launch
+    counter set to 0 just before and read just after, cls_32 at B=32 and
+    LP_NODE_CAP through ``solve_misdp`` on the card: OPTIMAL within BB_REL
+    of BB_OPTIMUM, or (at the node cap or LP_TIME_LIMIT) a bound at most
+    the optimum and any incumbent feasible; the walls of HiGHS, the cut
+    separation (einsum, ``eigh``, one transfer) and the rest; #1 from the
+    exact enforcement solves.  Then mkp_12 at B=8 to its optimum 30.0.
+    Returns the counts."""
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    cut_check(card, prob)
+    feastol = Settings().bb.feastol
+    lp_settings = dataclasses.replace(
+        bb_settings(batch_size=BB_BATCH, node_limit=LP_NODE_CAP,
+                    time_limit=LP_TIME_LIMIT), solve_sdps=0)
+
+    def run(p, s):
+        with CallSpy(sdpi_module.SDPInterface, ("_solve_batch_lp_host",)) \
+                as hspy, CallSpy(bb_module,
+                                 ("separate_eigenvector_cuts",)) as cspy:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = solve_misdp(p, s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st = out.stats
+        highs = hspy.wall["_solve_batch_lp_host"]
+        sep = cspy.wall["separate_eigenvector_cuts"]
+        return out, {**bb_summary(out, wall), "sep_rounds": st.sep_rounds,
+                     "ncuts": st.ncuts, "ncuts_dropped": st.ncuts_dropped,
+                     "nenforce_sdp": st.nenforce_sdp,
+                     "ndropped_nodes": st.ndropped_nodes,
+                     "highs_wall_s": highs, "separation_wall_s": sep,
+                     "separations": cspy.calls["separate_eigenvector_cuts"],
+                     "rest_wall_s": wall - highs - sep}
+
+    reset_counts()
+    out, summary = run(prob, lp_settings)
+    launches = counts()
+    if out.status.name == "OPTIMAL":
+        if abs(out.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+            raise AssertionError(f"lpmode cls_32: {summary}")
+    elif out.dual_bound > BB_OPTIMUM * (1 + BB_REL):
+        raise AssertionError(f"lpmode cls_32: bound {out.dual_bound} above "
+                             f"the optimum")
+    viol = None
+    if out.best_y is not None:
+        viol = incumbent_violation(prob, out.best_y)
+        if max(viol.values()) > feastol:
+            raise AssertionError(f"lpmode cls_32: incumbent infeasible: "
+                                 f"{viol}")
+    if out.stats.nenforce_sdp and launches["cholesky_lanes"] == 0:
+        raise AssertionError("lpmode cls_32: enforcement solves launched no "
+                             "cholesky_lanes")
+    log("lpmode_tree", instance="cls_32", batch=BB_BATCH,
+        node_cap=LP_NODE_CAP, time_limit_s=LP_TIME_LIMIT, card=card,
+        **summary, incumbent_violation=viol,
+        rel_err_vs_jax_optimum=(None if out.objval is None else
+                                abs(out.objval - BB_OPTIMUM) / BB_OPTIMUM),
+        cholesky_lanes_enforcement=launches["cholesky_lanes"],
+        launches=launches)
+
+    mkp = min_k_partition(*TURBO_MKP[:3], seed=TURBO_MKP[3])
+    ms = dataclasses.replace(bb_settings(batch_size=TURBO_MKP_BATCH,
+                                         node_limit=LP_NODE_CAP),
+                             solve_sdps=0)
+    mout, msummary = run(mkp, ms)
+    if mout.status.name != "OPTIMAL" or abs(
+            mout.objval - TURBO_MKP_OPTIMUM) > 1e-4 * TURBO_MKP_OPTIMUM:
+        raise AssertionError(f"lpmode mkp_12: {msummary}, want OPTIMAL at "
+                             f"{TURBO_MKP_OPTIMUM}")
+    all_launches = counts()
+    mlaunch = all_launches["cholesky_lanes"] - launches["cholesky_lanes"]
+    if mout.stats.nenforce_sdp and mlaunch == 0:
+        raise AssertionError("lpmode mkp_12: enforcement solves launched no "
+                             "cholesky_lanes")
+    log("lpmode_mkp", instance="mkp_12", batch=TURBO_MKP_BATCH, card=card,
+        **msummary, incumbent_violation=incumbent_violation(mkp, mout.best_y),
+        cholesky_lanes_enforcement=mlaunch)
+    return all_launches
+
+
 def tree_profile(fn) -> dict:
     """Device busy time and host syncs of one B&B solve: one call under
     torch.profiler with CUDA activity only (the tree launches ~150,000
@@ -1896,7 +2378,8 @@ def tree_profile(fn) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
                for e in kern)
     aggregate = time.perf_counter() - t0 - wall
-    syncs = sync_sites(fn)
+    with sync_sites() as syncs:
+        fn()
     return {"profiled_wall_s": wall, "profile_aggregate_s": aggregate,
             "device_busy_us": busy,
             "kernel_launches": sum(e.count for e in kern),
@@ -2148,16 +2631,24 @@ def cpu_reference(device, routes, bars) -> None:
             iters=out.iters, cpu_iters=ref.iters, max_rel_dobj=dev)
 
 
-def sync_sites(fn) -> list:
-    """The Python line of each host sync in one call of ``fn`` (CUDA sync
-    debug mode)."""
+@contextlib.contextmanager
+def sync_sites():
+    """The Python line of each host sync inside the ``with`` block (CUDA
+    sync debug mode), in the list it yields, filled when the block ends;
+    syncs made by this script's own lines (a spy's timing) are left
+    out."""
+    sites = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
-        fn()
-        torch.cuda.set_sync_debug_mode("default")
-    return [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
-            if "synchronizing CUDA operation" in str(w.message)]
+        try:
+            yield sites
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    own = pathlib.Path(__file__).name
+    sites += [f"{pathlib.Path(w.filename).name}:{w.lineno}" for w in caught
+              if "synchronizing CUDA operation" in str(w.message)
+              and pathlib.Path(w.filename).name != own]
 
 
 def device_profile(fn) -> tuple:
@@ -2183,7 +2674,8 @@ def device_profile(fn) -> tuple:
     evts = sorted(prof.key_averages(), key=dev_us, reverse=True)
     kern = [e for e in evts if e.device_type == DeviceType.CUDA]
     ops = [e for e in evts if e.device_type != DeviceType.CUDA]
-    syncs = sync_sites(fn)
+    with sync_sites() as syncs:
+        fn()
     return out, {
         "profiled_wall_s": wall, "device_busy_us": sum(map(dev_us, kern)),
         "kernel_launches": sum(e.count for e in kern),
@@ -2264,11 +2756,13 @@ def main() -> int:
                   {"on_pallas": 5e-6})
     for label, _, data, req, is_direct in cases:
         for route, s in routes.items():
-            if is_direct or route in ("refine_fused", "f64"):
+            if is_direct or route == "refine_fused":
                 profile_one(label, data, req, s, route)
     for label, _, data, req, _ in direct:
         for route, s in f32_routes.items():
             profile_one(label, data, req, s, route)
+    paths["probing"] = probing_phase(card)
+    paths["lpmode"] = lpmode_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

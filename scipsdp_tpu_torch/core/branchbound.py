@@ -21,19 +21,33 @@ Plugin roles folded in, as in the JAX package:
 * conflict rows from the relaxation certificates and binary no-goods from
   propagation conflicts, used for bound propagation at every node.
 
-The loop runs the nonlinear B&B (``solve_sdps = 1``) on one device: the
-card unless ``device="cpu"`` is given, with no fall-back to the CPU.  When
-the problem fits its feature set (``core/turbo.py::eligible``), the tree
-runs device-resident in ``core/turbo.py::solve_turbo`` instead, engaged as
-in the JAX package: ``bb.turbo="on"`` at once on any device; ``"auto"`` at
-once on the card and, on the CPU, by handing the host loop's frontier over
-after three batches once it holds 2B nodes; the host loop takes over when
-turbo bails.  What the JAX package runs elsewhere raises
-``NotImplementedError`` here, so a setting never silently changes the
-algorithm: the LP outer approximation (``solve_sdps = 0``), the device mesh
-and multi-host sync hook, and every option that reaches the probing module
-(inner-LP heuristic, analytic-center warm starts, OBBT, rounding-problem
-warm starts, Slater statistics, fractional diving).
+Two relaxation modes, switched by ``settings.solve_sdps`` like the
+reference's ``misc/solvesdps`` master switch (relax_sdp.c:5428):
+
+* ``solve_sdps = 1`` (default): nonlinear B&B — every node solves the SDP
+  relaxation through the recovery ladder;
+* ``solve_sdps = 0``: LP outer approximation — nodes solve LP relaxations
+  (scipy HiGHS on the host) and the SDP blocks are enforced by
+  *eigenvector cutting planes* (``ops/cuts.py``) separated into a global
+  cut pool (cons_sdp.c:separateSol:1612, produceCutFromEigenvector:896),
+  with an exact SDP solve of an integral node after ``enforce_after``
+  fruitless rounds (enforcesdp, cons_sdp.c:8276-8423).
+
+The probing plugins of ``core/probing.py`` run when their options are on:
+the root inner-LP heuristic, analytic-center warm starts, OBBT at the root
+and in the tree, rounding-problem warm starts (warmstartproject = 4),
+per-node Slater statistics and fractional diving.
+
+The loop runs on one device: the card unless ``device="cpu"`` is given,
+with no fall-back to the CPU.  When the problem fits its feature set
+(``core/turbo.py::eligible``), the tree runs device-resident in
+``core/turbo.py::solve_turbo`` instead, engaged as in the JAX package:
+``bb.turbo="on"`` at once on any device; ``"auto"`` at once on the card
+and, on the CPU, by handing the host loop's frontier over after three
+batches once it holds 2B nodes; the host loop takes over when turbo bails.
+The device mesh and the multi-host sync hook raise
+``NotImplementedError``, so a setting never silently changes the
+algorithm.
 """
 
 from __future__ import annotations
@@ -41,10 +55,11 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from scipsdp_tpu_torch.core import probing
 from scipsdp_tpu_torch.core import rank1 as r1
 from scipsdp_tpu_torch.core import turbo as _turbo
 from scipsdp_tpu_torch.core.branching import select_branch_var
@@ -56,17 +71,24 @@ from scipsdp_tpu_torch.core.propagate import (matrix_view, propagate_3minors,
                                               tighten_bounds,
                                               tighten_bounds_onevar)
 from scipsdp_tpu_torch.core.propredcost import redcost_tighten
-from scipsdp_tpu_torch.core.sdpi import SDPInterface
+from scipsdp_tpu_torch.core.sdpi import SDPInterface, to_host
 from scipsdp_tpu_torch.models.problem import INF, MISDP, DenseSDPData, densify
 from scipsdp_tpu_torch.native.frontier import FrontierStore
+from scipsdp_tpu_torch.ops.cmir import cmir_cut
+from scipsdp_tpu_torch.ops.cuts import (multiple_sparse_cuts,
+                                        separate_eigenvector_cuts)
 from scipsdp_tpu_torch.utils.config import Settings
 from scipsdp_tpu_torch.utils.status import SolveStatus, SolverResultStatus
 
 CUT_CHUNK = 16          # cut-buffer capacity granularity (padded rows keep
 #                         the batched solve's shapes few)
+MAX_POOL = 512          # global eigenvector cut pool cap (LP mode)
+MAX_SEP_ROUNDS = 8      # separation rounds per node batch (LP mode)
 
 _OPT_CODES = (int(SolverResultStatus.OPTIMAL),
               int(SolverResultStatus.PRESOLVED_OPTIMAL))
+_INFEAS_CODES = (int(SolverResultStatus.INFEASIBLE),
+                 int(SolverResultStatus.PRESOLVED_INFEASIBLE))
 
 
 @dataclasses.dataclass
@@ -138,7 +160,7 @@ class _Node:
         self.ysol = ysol          # parent relaxation solution (warmstart;
         #                           cons_savesdpsol.c role)
         self.xsol = xsol          # parent primal matrices in bucket layout
-        #                           (fillStartX)
+        #                           (fillStartX + project=4 rounding)
         self.wsrows = wsrows      # cut-row count when ysol was saved:
         #                           warmstart info is invalidated when the
         #                           row structure changed
@@ -156,28 +178,11 @@ class _Node:
 def _unported_options(settings: Settings, sync_hook=None) -> List[str]:
     """The settings this loop does not run, each with the ROADMAP item that
     ports it; ``solve_misdp`` raises ``NotImplementedError`` naming them."""
-    bb = settings.bb
     out = []
-    if settings.solve_sdps == 0:
-        out.append("solve_sdps=0 (LP outer approximation with eigenvector "
-                   "cuts, Queue 1 item 6)")
     if settings.use_mesh:
         out.append("use_mesh (device mesh, Queue 1 item 8)")
     if sync_hook is not None:
         out.append("sync_hook (multi-host sync, Queue 1 item 8)")
-    probing = [
-        ("bb.heuristic_innerlp", bb.heuristic_innerlp),
-        ("bb.warmstartiptype=2 with bb.warmstart",
-         bb.warmstart and bb.warmstartiptype == 2),
-        ("bb.obbt_at_root", bb.obbt_at_root),
-        ("bb.obbt_freq > 0", bb.obbt_freq > 0),
-        ("bb.warmstartproject=4 with bb.warmstart",
-         bb.warmstart and bb.warmstartproject == 4),
-        ("bb.slatercheck > 0", bb.slatercheck > 0),
-        ("bb.diving_freq > 0", bb.diving_freq > 0),
-    ]
-    out += [f"{name} (core/probing.py, Queue 1 item 3b)"
-            for name, on in probing if on]
     return out
 
 
@@ -233,9 +238,25 @@ class _Solver:
         self.settings = settings
         self.dense: DenseSDPData = densify(prob)
         self.m = prob.nvars
+        self.lp_mode = settings.solve_sdps == 0
         pairs = [(link.binvar, link.slackvar) for link in prob.indicators]
-        self.iface = SDPInterface(self.dense, settings, indicator_pairs=pairs,
-                                  device=device)
+        # full data: the SDP relaxations, and in LP mode separation and
+        # feasibility checks
+        self.full_iface = SDPInterface(self.dense, settings,
+                                       indicator_pairs=pairs, device=device)
+        self.iface = self.full_iface
+        if self.lp_mode:
+            # LP relaxation data: same rows/bounds, no SDP blocks, solved
+            # on the host simplex
+            lp_dense = densify(
+                MISDP(nvars=prob.nvars, obj=prob.obj, lb=prob.lb,
+                      ub=prob.ub, integral=prob.integral, blocks=[],
+                      lp=prob.lp, indicators=prob.indicators,
+                      name=prob.name + "_lp"))
+            self.iface = SDPInterface(lp_dense, settings, lp_host=True,
+                                      device=device)
+        self.pool: List[Tuple[np.ndarray, float]] = []  # global cuts
+        self._pool_keys = set()
         # conflict constraints (generateConflictCons, relax_sdp.c:1424):
         # globally valid rows used for bound propagation only (the
         # reference adds them with propagate=TRUE, everything else FALSE)
@@ -387,7 +408,6 @@ class _Solver:
                 continue
             lhs_i = lhs[i]
             if bb.conflictcmir:
-                from scipsdp_tpu_torch.ops.cmir import cmir_cut
                 mir = cmir_cut(g, lhs[i], self.prob.lb, self.prob.ub,
                                self.prob.integral, res.y[i])
                 if mir is not None:
@@ -405,24 +425,110 @@ class _Solver:
 
     # -- cuts ---------------------------------------------------------------
 
+    def _add_pool_cut(self, g: np.ndarray, rhs: float) -> bool:
+        if len(self.pool) >= MAX_POOL:
+            # no silent caps: a saturated pool is a measurable event
+            if self.stats.ncuts_dropped == 0:
+                print(f"  [notice] eigenvector cut pool saturated at "
+                      f"{MAX_POOL} rows; further cuts dropped")
+            self.stats.ncuts_dropped += 1
+            return False
+        key = (np.round(g / max(1.0, np.abs(g).max() or 1.0), 6).tobytes(),
+               round(float(rhs), 6))
+        if key in self._pool_keys:
+            return False
+        self._pool_keys.add(key)
+        self.pool.append((g.astype(np.float64), float(rhs)))
+        self.stats.ncuts += 1
+        return True
+
     def _assemble_cuts(self, batch: List[_Node], B: int):
-        """Padded per-node cut arrays of the node-local cuts (rank-1
-        secants, McCormick rows).  The JAX package puts its LP mode's
-        global eigenvector-cut pool in front of them; SDP mode leaves that
-        pool empty."""
-        q = max((len(n.cuts) for n in batch), default=0)
+        """Padded per-node cut arrays: the global pool (LP mode) ++ the
+        node-local cuts (rank-1 secants, McCormick rows)."""
+        npool = len(self.pool)
+        q = npool + max((len(n.cuts) for n in batch), default=0)
         if q == 0:
             return None
         q = _round_up(q, CUT_CHUNK)
         Gc = np.zeros((B, q, self.m))
         hc = np.zeros((B, q))
         valid = np.zeros((B, q), dtype=bool)
+        for c, (g, rhs) in enumerate(self.pool):
+            Gc[:, c, :] = g
+            hc[:, c] = rhs
+            valid[:, c] = True
         for i, node in enumerate(batch):
             for c, (g, rhs) in enumerate(node.cuts):
-                Gc[i, c, :] = g
-                hc[i, c] = rhs
-                valid[i, c] = True
+                Gc[i, npool + c, :] = g
+                hc[i, npool + c] = rhs
+                valid[i, npool + c] = True
+        valid[len(batch):] = False   # dummy slots
         return Gc, hc, valid
+
+    def _separate(self, y: np.ndarray, nreal: int,
+                  rowmask: Optional[np.ndarray] = None) -> int:
+        """Add violated eigenvector cuts at points y to the pool (LP mode).
+
+        One batched eigh per bucket yields every candidate cut
+        (ops/cuts.py), brought to the host in one transfer; each kept cut
+        is optionally strengthened by c-MIR (produceCutFromEigenvector's
+        CMIR path, cons_sdp.c:1039-1127) and optionally complemented by
+        disjoint-support sparse cuts (addMultipleSparseCuts,
+        cons_sdp.c:1340)."""
+        cs = self.settings.cuts
+        has_int = bool(np.any(self.prob.integral))
+        data = self.full_iface.data
+        sep = to_host(separate_eigenvector_cuts(
+            data, y, tol=self.settings.bb.feastol))[0]
+        added = 0
+        for t in range(data.nbuckets):
+            coefs = sep.coefs[t][:nreal]
+            rhs = sep.rhs[t][:nreal]
+            valid = sep.valid[t][:nreal]
+            if rowmask is not None:
+                valid = valid & rowmask[:nreal, None, None]
+            if cs.separateonecut and valid.any():
+                lam = sep.lam[t][:nreal]
+                best = np.argmin(np.where(valid, lam, np.inf), axis=2)
+                onemask = np.zeros_like(valid)
+                ii, kk = np.meshgrid(range(valid.shape[0]),
+                                     range(valid.shape[1]), indexing="ij")
+                onemask[ii, kk, best] = True
+                valid = valid & onemask
+            for (i, k, e) in np.argwhere(valid):
+                g = coefs[i, k, e, : self.m]
+                r = rhs[i, k, e]
+                if self._add_pool_cut(g, r):
+                    added += 1
+                if cs.generatecmir and has_int:
+                    mir = cmir_cut(g, r, self.prob.lb, self.prob.ub,
+                                   self.prob.integral, y[i, : self.m])
+                    if mir is not None and self._add_pool_cut(*mir):
+                        added += 1
+            if cs.multiplesparsecuts and valid.any():
+                As, Cs, dms = self.full_iface._np_data[:3]
+                A, C, dimmask = As[t], Cs[t], dms[t]
+                if cs.sparsifytargetsize > 0:
+                    size = cs.sparsifytargetsize
+                else:
+                    size = max(10, int(cs.sparsifyfactor * self.m))
+                yx = np.concatenate([y[:, : self.m],
+                                     np.zeros((y.shape[0], 1))], axis=1)
+                for (i, k) in {(i, k) for (i, k, _) in np.argwhere(valid)}:
+                    ns = int(dimmask[k].sum())
+                    if size > ns:
+                        continue
+                    Zk = np.einsum("jab,j->ab", A[k], yx[i])[:ns, :ns] \
+                        - C[k][:ns, :ns]
+                    for v in multiple_sparse_cuts(
+                            Zk, size, cs.maxnsparsecuts or -1,
+                            tol=self.settings.bb.feastol):
+                        gj = np.einsum("a,jab,b->j", v, A[k, : self.m,
+                                                         :ns, :ns], v)
+                        rj = float(v @ C[k][:ns, :ns] @ v)
+                        if self._add_pool_cut(gj, rj):
+                            added += 1
+        return added
 
     # -- relaxation solving -------------------------------------------------
 
@@ -431,6 +537,11 @@ class _Solver:
         IPM's fillStartX warmstart consumes)."""
         return [np.asarray(res.X[t][i]) for t in range(len(res.X))]
 
+    @staticmethod
+    def buckets_to_blocks(data, xsol) -> List[np.ndarray]:
+        """Bucket-layout node X -> per-original-block matrices."""
+        return [np.asarray(xsol[t][s]) for (t, s) in data.block_of]
+
     last_q = 0   # cut-row count of the most recent relaxation solve
 
     def solve_relaxations(self, batch: List[_Node], B: int,
@@ -438,8 +549,10 @@ class _Solver:
         t_solve = time.time()
         cuts = self._assemble_cuts(batch, B)
         self.last_q = 0 if cuts is None else cuts[0].shape[1]
-        # the rounding heuristics ride the solve dispatch
-        seed = self.settings.seed + 7919 * self.stats.nodes
+        # in SDP mode the rounding heuristics ride the solve dispatch
+        # (relaxation data == full data); LP mode checks on the host
+        seed = (None if self.lp_mode
+                else self.settings.seed + 7919 * self.stats.nodes)
         warm = None
         bb = self.settings.bb
         if bb.warmstart:
@@ -475,6 +588,40 @@ class _Solver:
         self.stats.solver_calls += res.nsolves
         self.stats.npenalty += res.npenalty
         self.stats.ndirect += res.ndirect
+
+        if self.lp_mode:
+            # separation loop: add eigenvector cuts until SDP-feasible or
+            # no violated cuts (the reference's LP loop: consSepalpSdp ->
+            # separateSol per LP round)
+            integral = self.prob.integral
+            for rnd in range(MAX_SEP_ROUNDS):
+                usable = np.isin(res.status, _OPT_CODES)
+                if not usable.any():
+                    break
+                sep_mask = None
+                if bb.enforcesdp and rnd >= bb.enforce_after:
+                    # exact-SDP enforcement takes over for INTEGRAL points
+                    # after ``enforce_after`` separation rounds
+                    # (consEnfolpSdp -> enforceSdp, cons_sdp.c:8276-8423):
+                    # those members stop separating so the acceptance path
+                    # solves their true SDP; fractional members of the
+                    # same batch keep their remaining cut rounds
+                    frac = np.abs(res.y[:, integral]
+                                  - np.round(res.y[:, integral]))
+                    is_int = (frac.max(axis=1) <= bb.feastol if frac.size
+                              else np.ones(res.y.shape[0], dtype=bool))
+                    stop_rows = usable & is_int
+                    if (usable & ~stop_rows).sum() == 0:
+                        break    # every usable member awaits enforcement
+                    sep_mask = ~stop_rows
+                added = self._separate(res.y, len(batch), rowmask=sep_mask)
+                self.stats.sep_rounds += 1
+                if added == 0:
+                    break
+                cuts = self._assemble_cuts(batch, B)
+                res = self.iface.solve_batch(lb, ub, cuts=cuts)
+                self.stats.relax_solves += 1
+                self.stats.solver_calls += res.nsolves
         self.stats.solve_time += time.time() - t_solve
         return res
 
@@ -579,6 +726,46 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         return BBResult(SolveStatus.INFEASIBLE, None, None,
                         prob.external_objval(np.inf), 0.0, stats)
 
+    def heuristic_ok(yv: np.ndarray) -> bool:
+        """A heuristic point satisfies what the relaxation check leaves
+        out: indicator links, bilinear lifts and rank-1 blocks."""
+        return (_violated_indicator(prob, yv, feastol) < 0
+                and not _lift_violated(prob, yv, feastol)
+                and (not has_rank1 or r1.rank1_violation(
+                    sol.dense, yv, feastol) is None))
+
+    # optional root inner-approximation LP heuristic (heur_sdpinnerlp.c)
+    if bb.heuristic_innerlp:
+        y_in, ok_in = probing.inner_lp_point(prob, settings,
+                                             device=sol.full_iface.device)
+        if ok_in and y_in is not None:
+            okc, _ = check_points(sol.full_iface.data, y_in[None, :],
+                                  root_lb[None, :], root_ub[None, :],
+                                  feastol=feastol_check)
+            if bool(okc[0].item()) and heuristic_ok(y_in):
+                incumbent_val = float(obj @ y_in)
+                incumbent_y = y_in.copy()
+                stats.heur_found += 1
+
+    # root analytic centers for warmstartiptype = 2 (prop_companalcent.c
+    # one-shot trigger of SCIPrelaxSdpComputeAnalyticCenters); the host
+    # loop's solves start from their convex combinations, turbo's do not,
+    # as in the JAX package
+    if bb.warmstart and bb.warmstartiptype == 2 and not sol.lp_mode:
+        ac_y, ac_ok, ac_X = probing.analytic_center(
+            sol.iface, root_lb[None, :], root_ub[None, :], with_X=True)
+        if bool(ac_ok[0]):
+            sol.iface.set_interior_point(ac_y[0], ac_X)
+
+    # optional root OBBT (prop_sdpobbt.c)
+    if bb.obbt_at_root and not sol.lp_mode:
+        targets = np.where(integral)[0]
+        if targets.size:
+            root_lb, root_ub, nt = probing.obbt_root(
+                sol.full_iface, root_lb, root_ub, targets, None,
+                bb.batch_size, feastol)
+            stats.redcost_tightenings += nt
+
     # full automorphism group for orbital fixing (compute_symmetry_bliss
     # role; generators verified exactly — see core/symmetry.py)
     sym_group = None
@@ -600,7 +787,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
     # JAX package: at once on the card (which JAX keys to a non-CPU
     # backend) or with "on"; on the CPU with "auto" the host loop runs
     # first and hands its frontier over once the tree proves big
-    turbo_ok = (_turbo.eligible(prob, sol.dense, settings, False)
+    turbo_ok = (_turbo.eligible(prob, sol.dense, settings, sol.lp_mode)
                 and checkpoint is None and not resume
                 and sync_hook is None and sym_group is None
                 and bb.slatercheck == 0)
@@ -674,6 +861,9 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         _push_node(_Node(root_lb, root_ub, -np.inf, 0), -np.inf)
 
     unbounded = False
+    # a child keeps its parent's X for the primal warm start and for the
+    # rounding problems of warmstartproject = 4
+    want_x = bb.warmstartprimal or bb.warmstartproject == 4
     hit_limit: Optional[SolveStatus] = None
     turbo_open_bound = np.inf   # open bound of a limit-hit turbo handoff
 
@@ -762,6 +952,50 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     node.ub = node.ub.copy()
                     node.lb[0], node.ub[0] = 1.0, 0.0
 
+        # in-tree OBBT (prop_sdpobbt.c, PROP_FREQ=-1 in the reference —
+        # opt-in here via obbt_freq): tighten continuous bounds of nodes
+        # at qualifying depths with objective-cutoff probing solves
+        if bb.obbt_freq > 0 and not sol.lp_mode:
+            cont = np.where(~integral)[0]
+            for node in batch:
+                if (cont.size and node.depth > 0
+                        and node.depth % bb.obbt_freq == 0):
+                    node.lb, node.ub, nt = probing.obbt_root(
+                        sol.full_iface, node.lb, node.ub, cont,
+                        (incumbent_val if np.isfinite(incumbent_val)
+                         else None),
+                        bb.batch_size, feastol)
+                    stats.redcost_tightenings += nt
+
+        if bb.warmstart and bb.warmstartproject == 4 and not sol.lp_mode:
+            # warmstartproject = 4: solve the rounding problems before the
+            # SDP solves (determineWarmStartInformation, relax_sdp.c:3051);
+            # the primal rounding LP can prune the node outright
+            kept = []
+            for node in batch:
+                if node.ysol is None or node.xsol is None:
+                    kept.append(node)
+                    continue
+                action, wy = probing.rounding_problem(
+                    sol.prob, sol.dense, settings,
+                    sol.buckets_to_blocks(sol.iface.data, node.xsol),
+                    node.ysol, node.lb, node.ub,
+                    cutoff=(incumbent_val if np.isfinite(incumbent_val)
+                            else INF),
+                    feastol=feastol, device=sol.iface.device)
+                if action == "cutoff":
+                    stats.roundingprobinf += 1
+                    stats.nodes += 1
+                    continue
+                if action == "ok" and not bb.warmstartroundonlyinf:
+                    node.ysol = wy
+                else:
+                    node.ysol = None   # coldstart (roundonlyinf / failure)
+                kept.append(node)
+            batch = kept
+            if not batch:
+                continue
+
         B = bb.batch_size
         lb = np.empty((B, m))
         ub = np.empty((B, m))
@@ -773,16 +1007,63 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                 lb[i] = 1.0   # dummy slot: bound conflict, presolved away
                 ub[i] = 0.0
 
+        # per-node Slater accounting (checkSlaterCondition, sdpi.c:1518;
+        # table_slater.c summary) — one extra batched probe solve
+        if bb.slatercheck > 0 and not sol.lp_mode:
+            sl = probing.slater_check(sol.full_iface, lb[: len(batch)],
+                                      ub[: len(batch)])
+            stats.slater_holds += int((sl == 1).sum())
+            stats.slater_fails += int((sl == 0).sum())
+            stats.slater_undecided += int((sl == -1).sum())
+            # primal side per node (checkSlaterCondition's primal branch,
+            # sdpi.c:1748-1812): all-finite node bounds make the primal
+            # Slater condition hold STRUCTURALLY (every X is feasible via
+            # the bound-slack variables, sdpi.c:1769-1781) — the aux solve
+            # is needed only for boxes with an infinite side
+            slp = np.empty(len(batch), dtype=np.int8)
+            for bi in range(len(batch)):
+                if bool(np.all(lb[bi] > -INF / 2)
+                        & np.all(ub[bi] < INF / 2)):
+                    slp[bi] = 1
+                else:
+                    slp[bi] = probing.slater_check_primal(
+                        prob, settings, lb[bi], ub[bi],
+                        device=sol.full_iface.device)
+            stats.slater_primal_holds += int((slp == 1).sum())
+            stats.slater_primal_fails += int((slp == 0).sum())
+            stats.slater_primal_undecided += int((slp == -1).sum())
+            if bb.slatercheck >= 2:
+                print(f"node slater: dual {sl.tolist()} "
+                      f"primal {slp.tolist()}")
+
         res = sol.solve_relaxations(batch, B, lb, ub)
         stats.nodes += len(batch)
-        if bb.conflictconss:
+        if bb.conflictconss and not sol.lp_mode:
             sol.collect_conflicts(batch, res)
 
+        # batched fracdiving (heur_sdpfracdiving.c): every diving_freq
+        # batches, dive all nodes of the batch one probing line each
+        if (bb.diving_freq > 0 and not sol.lp_mode
+                and stats.relax_solves % bb.diving_freq == 0):
+            start_ok = np.isin(res.status, _OPT_CODES)
+            start_ok[len(batch):] = False
+            ydive, dfeas = probing.fracdive(sol.full_iface, lb, ub, res.y,
+                                            integral, feastol,
+                                            start_ok=start_ok)
+            for i in range(len(batch)):
+                if dfeas[i] and heuristic_ok(ydive[i]):
+                    val = float(obj @ ydive[i])
+                    if val < incumbent_val - 1e-12:
+                        incumbent_val = val
+                        incumbent_y = ydive[i].copy()
+                        stats.heur_found += 1
+
         # batched rounding heuristics: nearest rounding
-        # (heur_sdpfracround.c) and randomized rounding (heur_sdprand.c),
-        # rounded and checked on the device inside the direct rung (which
-        # gates each heuristic's candidate itself)
-        if bb.heuristic_fracround or bb.heuristic_rand:
+        # (heur_sdpfracround.c) and randomized rounding (heur_sdprand.c)
+        if ((bb.heuristic_fracround or bb.heuristic_rand)
+                and res.round_feas is not None):
+            # SDP mode: rounded and checked on the device inside the
+            # direct rung (which gates each heuristic's candidate itself)
             yr = res.round_y
             feas = res.round_feas.copy()
             for i in range(len(batch)):
@@ -791,6 +1072,43 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     feas[i] = False
                 if feas[i] and _lift_violated(prob, yr[i], feastol):
                     feas[i] = False
+        elif bb.heuristic_fracround or bb.heuristic_rand:
+            # LP mode: the LP points rounded on the host, each candidate
+            # set checked against the full data in one batched check
+            rng_h = np.random.default_rng(settings.seed + stats.nodes)
+            cands = []
+            if bb.heuristic_fracround:
+                yr0 = res.y.copy()
+                yr0[:, integral] = np.round(yr0[:, integral])
+                cands.append(yr0)
+            if bb.heuristic_rand:
+                yr1 = res.y.copy()
+                frac1 = yr1[:, integral] - np.floor(yr1[:, integral])
+                yr1[:, integral] = np.floor(yr1[:, integral]) + (
+                    rng_h.random(frac1.shape) < frac1)
+                cands.append(yr1)
+            feas = np.zeros(B, dtype=bool)
+            yr = res.y.copy()
+            best = np.full(B, np.inf)
+            for yc in cands:
+                yc = np.clip(yc, lb, ub)
+                for link in prob.indicators:
+                    on = yc[:, link.binvar] >= 0.5
+                    yc[on, link.slackvar] = 0.0
+                f, _ = check_points(sol.full_iface.data, yc, lb, ub,
+                                    feastol=feastol_check)
+                f = f.cpu().numpy()
+                for i in range(len(batch)):
+                    if f[i] and has_rank1 and r1.rank1_violation(
+                            sol.dense, yc[i], feastol) is not None:
+                        f[i] = False
+                    if f[i] and _lift_violated(prob, yc[i], feastol):
+                        f[i] = False
+                vals = yc @ obj
+                better = f & (vals < best)
+                yr[better] = yc[better]
+                best[better] = vals[better]
+                feas = feas | better
         else:
             feas = np.zeros(B, dtype=bool)
             yr = res.y
@@ -828,11 +1146,12 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     incumbent_y = yr[i].copy()
                     stats.heur_found += 1
 
-            if st == SolverResultStatus.PRESOLVED_OPTIMAL and not has_rank1:
-                # all vars fixed & feasible: leaf with known value (with
-                # rank-1 constraints the presolve decision only covers the
-                # relaxation data, so fall through to the full acceptance
-                # check below)
+            if (st == SolverResultStatus.PRESOLVED_OPTIMAL
+                    and not has_rank1 and not sol.lp_mode):
+                # all vars fixed & feasible: leaf with known value (in LP
+                # mode / with rank-1 constraints the presolve decision only
+                # covers the relaxation data, so fall through to the full
+                # acceptance check below)
                 if bound < incumbent_val - 1e-12:
                     incumbent_val = bound
                     incumbent_y = 0.5 * (node.lb + node.ub)
@@ -841,11 +1160,94 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
             # acceptance check of the relaxation solution
             enforce_ind = -1
             spatial = None   # (var, splitval, child cuts) for rank-1
+            lp_enforced = False  # exact-SDP enforcement decided to branch
             if y is not None and st in _OPT_CODES:
                 frac = np.abs(y[integral] - np.round(y[integral]))
                 if frac.size == 0 or np.max(frac) <= feastol:
                     enforce_ind = _violated_indicator(prob, y, feastol)
-                    if enforce_ind < 0 and prob.liftinfo:
+                    if enforce_ind < 0 and sol.lp_mode:
+                        # LP mode enforcement (consEnfolpSdp:8235): an
+                        # integral LP solution must still be SDP-feasible;
+                        # if not, separate more cuts and requeue the node —
+                        # and after ``enforce_after`` fruitless rounds,
+                        # solve the node's TRUE SDP in probing
+                        # (enforcesdp, cons_sdp.c:8276-8423)
+                        ok, _ = check_points(
+                            sol.full_iface.data, y[None, :],
+                            node.lb[None, :], node.ub[None, :],
+                            feastol=feastol_check)
+                        if not bool(ok[0].item()):
+                            if (bb.enforcesdp
+                                    and node.requeues >= bb.enforce_after):
+                                stats.nenforce_sdp += 1
+                                er = sol.full_iface.solve_batch(
+                                    node.lb[None, :], node.ub[None, :])
+                                est = int(er.status[0])
+                                if est in _INFEAS_CODES:
+                                    continue  # exact cutoff (:8338)
+                                if est in _OPT_CODES:
+                                    eb = float(er.objval[0])
+                                    ey = er.y[0]
+                                    if eb >= (incumbent_val - prune_slack
+                                              + bb.gaplimit
+                                              * abs(incumbent_val)):
+                                        continue  # exact bound prunes
+                                    efr = np.abs(ey[integral]
+                                                 - np.round(ey[integral]))
+                                    eind = _violated_indicator(prob, ey,
+                                                               feastol)
+                                    if ((efr.size == 0
+                                         or np.max(efr) <= feastol)
+                                            and eind < 0):
+                                        # exact node optimum is feasible:
+                                        # node solved (SCIPaddSol +
+                                        # cutoff, :8355-8362)
+                                        okx, _ = check_points(
+                                            sol.full_iface.data,
+                                            ey[None, :], node.lb[None, :],
+                                            node.ub[None, :],
+                                            feastol=feastol_check)
+                                        if bool(okx[0].item()):
+                                            if eb < incumbent_val - 1e-12:
+                                                incumbent_val = eb
+                                                incumbent_y = ey.copy()
+                                            continue
+                                    # fractional exact solution: adopt the
+                                    # exact bound + point and branch on it
+                                    y = ey
+                                    bound = max(bound, eb)
+                                    enforce_ind = eind
+                                    # LP bound multipliers are stale for
+                                    # the SDP bound: no dual fixing here
+                                    res.xlb[i] = 0.0
+                                    res.xub[i] = 0.0
+                                    lp_enforced = True
+                                # FAILED exact solve: fall back to
+                                # separation / requeue below
+                            if not lp_enforced:
+                                if node.requeues < 20:
+                                    sol._separate(y[None, :], 1)
+                                    node.bound = bound
+                                    node.requeues += 1
+                                    _push_node(node, bound)
+                                    continue
+                                # separation + enforcement exhausted:
+                                # branch on an unfixed integer for sound
+                                # progress instead of dropping the node
+                                unfx = np.where(
+                                    integral
+                                    & (node.ub - node.lb > feastol))[0]
+                                if unfx.size == 0:
+                                    stats.ndropped_nodes += 1
+                                    print("  [notice] LP-mode node "
+                                          "undecidable (separation + "
+                                          "enforcement exhausted); "
+                                          "dropped")
+                                    continue
+                                y = None
+                                lp_enforced = True
+                    if (enforce_ind < 0 and not lp_enforced
+                            and prob.liftinfo):
                         # bilinear-lift enforcement (quad upgrade): find the
                         # most violated identity w = y_i y_j, branch on the
                         # wider factor at its current value; children get
@@ -878,7 +1280,8 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                                 incumbent_val = bound
                                 incumbent_y = y.copy()
                             continue
-                    if enforce_ind < 0 and spatial is None and has_rank1:
+                    if (enforce_ind < 0 and spatial is None
+                            and not lp_enforced and has_rank1):
                         v = r1.rank1_violation(sol.dense, y, feastol)
                         if v is not None:
                             # rank-1 extreme-point heuristic: re-solve the
@@ -1006,7 +1409,8 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                                     y[j], node.lb[j], node.ub[j]),
                                     r1.rank1_cuts(sol.dense, k, s, t,
                                                   node.lb, node.ub))
-                    if enforce_ind < 0 and spatial is None:
+                    if (enforce_ind < 0 and spatial is None
+                            and not lp_enforced):
                         if bound < incumbent_val - 1e-12:
                             incumbent_val = bound
                             incumbent_y = y.copy()
@@ -1096,11 +1500,10 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     if (bb.warmstart and res.pre_has is not None
                             and bool(res.pre_has[i])):
                         ws_y = res.pre_y[i]
-                        if bb.warmstartprimal and res.pre_X is not None:
+                        if want_x and res.pre_X is not None:
                             ws_X = [np.asarray(res.pre_X[t][i])
                                     for t in range(len(res.pre_X))]
-                    elif bb.warmstart and bb.warmstartprimal \
-                            and y is not None:
+                    elif bb.warmstart and want_x and y is not None:
                         ws_X = sol.node_X_buckets(res, i)
                     _push_node(
                         _Node(clb, cub, bound, node.depth + 1, ccuts,

@@ -141,6 +141,22 @@ def indicator_prob():
                  name="ind")
 
 
+def obbt_prob():
+    """Integers whose relaxation bound only a 4 x 4 eigenvalue shows:
+    min -y0 - 2 y1 with 4.5 I - (y0 + y1)(J - I) PSD (so y0 + y1 <= 1.5)
+    and y integer in [0, 10].  Propagation reads the 2 x 2 minors
+    (y0 + y1 <= 4.5); OBBT over the integers tightens both upper bounds
+    to 1.5.  Optimum -2 at (0, 1)."""
+    off = [(r, c) for r in range(4) for c in range(r)]
+    blk = SDPBlock(size=4, var=[0] * 6 + [1] * 6,
+                   row=[r for r, _ in off] * 2, col=[c for _, c in off] * 2,
+                   val=[-1.0] * 12, const_row=list(range(4)),
+                   const_col=list(range(4)), const_val=[-4.5] * 4)
+    return MISDP(nvars=2, obj=np.array([-1.0, -2.0]), lb=np.zeros(2),
+                 ub=np.full(2, 10.0), integral=np.ones(2, bool),
+                 blocks=[blk], lp=LinearConstraints.empty(), name="obbt4")
+
+
 @pytest.fixture(scope="module")
 def torch_one_thread():
     """torch's CPU ops on one thread while a module runs, the caller's

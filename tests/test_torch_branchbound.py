@@ -15,8 +15,13 @@ against the JAX package's on the CPU.
   resumes in the port to the JAX optimum; the port's own checkpoints
   resume (tests/test_checkpoint.py's two checks, which read an instance
   file that is not in the repository, rebuilt on a generated CLS).
-* Every path that is not ported raises ``NotImplementedError``, and
-  ``device=None`` means the card.  ``bb.turbo="auto"`` on the CPU runs
+* The probing module's seven options and LP mode, one parity tree each
+  on an instance where the option moves its own counters against the
+  same tree without it (``test_option_parity``); the root options leave
+  turbo's engagement as JAX's.
+* The two paths that are not ported (the device mesh, the multi-host sync
+  hook) raise ``NotImplementedError``, and ``device=None`` means the
+  card.  ``bb.turbo="auto"`` on the CPU runs
   the host loop first (``tests/test_torch_turbo_bb.py`` holds the
   device-resident tree and its engagement to JAX).
 """
@@ -27,13 +32,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_bbcases import SOLVE, assert_same
+from _torch_bbcases import (SOLVE, assert_same, obbt_prob,  # noqa: F401
+                             torch_one_thread)
 from scipsdp_tpu.core.branchbound import solve_misdp as jax_solve_misdp
 from scipsdp_tpu.models import families as jfam
 from scipsdp_tpu.utils.config import (BBSettings, IPMSettings, Settings)
 from scipsdp_tpu_torch.core import branchbound as tbb
 from scipsdp_tpu_torch.interop import problem_from_jax, settings_from_jax
 from scipsdp_tpu_torch.utils.status import SolveStatus
+
+pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 IPM = IPMSettings(phase32="off", step_rule="eigh", use_lanes_chol=False,
                   use_df32="off", fused_direction="off")
@@ -163,16 +171,8 @@ def test_resume_finished_checkpoint(tmp_path):
 
 
 UNPORTED = {
-    "lp_mode": dict(solve_sdps=0),
     "use_mesh": dict(use_mesh=True),
     "sync_hook": dict(),
-    "heuristic_innerlp": dict(bb=dict(heuristic_innerlp=True)),
-    "analytic_center": dict(bb=dict(warmstart=True, warmstartiptype=2)),
-    "obbt_at_root": dict(bb=dict(obbt_at_root=True)),
-    "obbt_freq": dict(bb=dict(obbt_freq=2)),
-    "rounding_problem": dict(bb=dict(warmstart=True, warmstartproject=4)),
-    "slatercheck": dict(bb=dict(slatercheck=1)),
-    "diving_freq": dict(bb=dict(diving_freq=3)),
 }
 
 
@@ -187,6 +187,85 @@ def test_unported_paths_raise(case):
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         tbb.solve_misdp(problem_from_jax(SOLVE["conflict"][0]()), s,
                         sync_hook=hook, device="cpu")
+
+
+# the opt-in options of the probing module and LP mode: per option the
+# tree it runs on, the settings it runs beside (warm starts for the two
+# warm-start variants), its own settings, and the counters it moves there
+SLATER = tuple(f"slater_{side}{k}" for side in ("", "primal_")
+               for k in ("holds", "fails", "undecided"))
+OPTIONS = {
+    "lp_mode": ("cls", {}, dict(solve_sdps=0), ("sep_rounds", "ncuts")),
+    "heuristic_innerlp": ("hetero", {}, dict(heuristic_innerlp=True),
+                          ("heur_found",)),
+    "analytic_center": ("cls", dict(warmstart=True),
+                        dict(warmstartiptype=2), ("ipm_iterations",)),
+    "obbt_at_root": ("obbt", {}, dict(obbt_at_root=True),
+                     ("redcost_tightenings",)),
+    "obbt_freq": ("cls", {}, dict(obbt_freq=2), ("redcost_tightenings",)),
+    "rounding_problem": ("cls", dict(warmstart=True),
+                         dict(warmstartproject=4), ("ipm_iterations",)),
+    "slatercheck": ("cls", {}, dict(slatercheck=1), SLATER),
+    "diving_freq": ("cls", {}, dict(diving_freq=2), ("heur_found",)),
+}
+TREES = {**SOLVE, "obbt": (obbt_prob, 4)}
+
+
+def option_settings(batch, base, option):
+    """The parity settings with ``base`` and ``option`` set (``solve_sdps``
+    at the top level, the rest in ``bb``)."""
+    kw = {**base, **option}
+    top = {k: kw.pop(k) for k in list(kw) if k == "solve_sdps"}
+    s = settings(batch, **top)
+    return dataclasses.replace(s, bb=dataclasses.replace(s.bb, **kw))
+
+
+@pytest.mark.parametrize("case", sorted(OPTIONS))
+def test_option_parity(case):
+    """Each option of the probing module, and LP mode, in both host loops:
+    the same optimum and every counter equal; and the option acts on that
+    tree: the counters it moves differ from the port's tree without it."""
+    name, base, option, moved = OPTIONS[case]
+    build, batch = TREES[name]
+    rj, rt = solve_both(build(), option_settings(batch, base, option))
+    assert rj.status == rj.status.OPTIMAL
+    assert_same_optimum(rj, rt)
+    assert counters(rt.stats) == counters(rj.stats)
+    off = tbb.solve_misdp(problem_from_jax(build()),
+                          settings_from_jax(option_settings(batch, base, {})),
+                          device="cpu")
+    assert ([getattr(rt.stats, k) for k in moved]
+            != [getattr(off.stats, k) for k in moved])
+
+
+def test_root_options_keep_turbo_engagement(monkeypatch):
+    """The root's inner-LP heuristic, analytic centers and OBBT run before
+    turbo engages and leave its engagement as JAX's: with bb.turbo="on"
+    both packages hand the tree to solve_turbo at once, with the same
+    counters (a chunk holds at most 8 rounds, as turbo parity pins)."""
+    from scipsdp_tpu.core import turbo as jturbo
+    from scipsdp_tpu_torch.core import turbo as tturbo
+    calls = {"jax": [], "port": []}
+    for key, mod in (("jax", jturbo), ("port", tturbo)):
+        orig = mod.solve_turbo
+
+        def spy(*a, _orig=orig, _key=key, **kw):
+            res = _orig(*a, **kw)
+            calls[_key].append((kw.get("init_nodes"), res))
+            return res
+
+        monkeypatch.setattr(mod, "solve_turbo", spy)
+    build, batch = SOLVE["cls"]
+    s = settings(batch)
+    s = dataclasses.replace(s, bb=dataclasses.replace(
+        s.bb, turbo="on", turbo_rounds=8, heuristic_innerlp=True,
+        obbt_at_root=True, warmstart=True, warmstartiptype=2))
+    rj, rt = solve_both(build(), s)
+    assert rj.status == rj.status.OPTIMAL
+    assert_same_optimum(rj, rt)
+    assert counters(rt.stats) == counters(rj.stats)
+    assert len(calls["jax"]) == len(calls["port"]) == 1
+    assert calls["port"][0][0] is None and calls["port"][0][1] is not None
 
 
 def test_turbo_auto_runs_the_host_loop(monkeypatch):
