@@ -181,10 +181,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    incumbent) and mkp_12 at B=8 to 30.0: nodes, LP rounds, separation
    rounds, cuts, exact enforcement solves and their #1 launches, and the
    walls of HiGHS, the separation and the rest.
+14. cli path (the file entry points): cls_32 and cls_64 written by the
+   port's writers as .dat-s, .dat-s.gz, .cbf and .cip and read back
+   with ``read_problem`` (bytes and read ms of each file; the plain
+   .dat-s through the native tokenizer only, its problem equal to the
+   Python parser's, which is timed beside it); ``python -m
+   scipsdp_tpu_torch`` in process on the cls_32 .dat-s, .cbf and .cip
+   files at B=32 (OPTIMAL at BB_OPTIMUM within 1e-4 relative, the
+   incumbent feasible; wall, nodes, rounds, #1 launches, the .dat-s
+   run's host syncs, beside the turbo phase's tree), ``--settings``
+   (every loaded field as the .set file says, the optimum), ``--slater
+   --write-transformed`` on the card and on the CPU (the same lines and
+   file; the file reads back with the generated rows), mkp_12
+   ``--lp-approx`` to 30.0, cls_64's root; two subprocesses: cls_32 to
+   its optimum, and ``--mesh``, which must exit non-zero naming Queue 1
+   item 8.
 
 The kernel launch counters are set to 0 just before each path (float64,
 sdpi, bb, turbo, refine, fused, on_pallas, refine_pallas, lite_pallas,
-probing, lpmode) and read just after.  The line before the
+probing, lpmode, cli) and read just after.  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
@@ -196,32 +211,44 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import gzip
+import io
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
 import numpy as np
 import torch
 
-from scipsdp_tpu_torch import _build
+from scipsdp_tpu_torch import _build, native
+from scipsdp_tpu_torch.__main__ import main as cli_main
 from scipsdp_tpu_torch.core import branchbound as bb_module
 from scipsdp_tpu_torch.core import probing
 from scipsdp_tpu_torch.core import sdpi as sdpi_module
 from scipsdp_tpu_torch.core import turbo
 from scipsdp_tpu_torch.core.branchbound import solve_misdp
 from scipsdp_tpu_torch.core.feascheck import check_points
+from scipsdp_tpu_torch.core.presolve_sdp import presolve_problem
 from scipsdp_tpu_torch.core.sdpi import SDPInterface
+from scipsdp_tpu_torch.models import reader_sdpa
 from scipsdp_tpu_torch.models.families import (cardinality_least_squares,
                                                min_k_partition)
+from scipsdp_tpu_torch.models.io import read_problem
 from scipsdp_tpu_torch.models.problem import MISDP, densify
+from scipsdp_tpu_torch.models.writers import (transformed_for_write,
+                                              write_cbf, write_cip,
+                                              write_sdpa)
 from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.cuts import separate_eigenvector_cuts
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
-from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
+from scipsdp_tpu_torch.utils.config import (BBSettings, IPMSettings,
+                                            Settings, resolve_backend_autos)
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
 
 KERNELS = {   # name -> (wrapper, TPU kernel it replaces)
@@ -1704,9 +1731,11 @@ class CallSpy:
         self.calls = dict.fromkeys(names, 0)
         self.launches = dict.fromkeys(names, 0)
         self.results = {k: [] for k in names}
+        self.args = {k: [] for k in names}
 
     def wrap(self, name, orig):
         def call(*a, **kw):
+            self.args[name].append((a, kw))
             l0 = kernels.cholesky_lanes.launches
             t0 = time.perf_counter()
             try:
@@ -1845,7 +1874,8 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
     solve, its host syncs by kind (turbo_syncs).  Then mkp_12 at B=8
     through ``solve_turbo`` (no bail, the optimum 30.0), and #1 against
     its plain version on every candidate point of the cls_32 tree
-    (psd_probe_check).  Returns the counts of the cls_32 run."""
+    (psd_probe_check).  Returns the counts of the cls_32 run and its
+    summary."""
     small = cardinality_least_squares(*BB_SMALL[:3], seed=BB_SMALL[3])
     res = {}
     for dev in ("cuda", "cpu"):
@@ -1942,7 +1972,7 @@ def turbo_phase(card: str, host_tree: dict) -> dict:
 
     log("turbo_probe_check", instance="cls_32", card=card,
         psd_feasible_calls=len(spy.points), **psd_probe_check(spy.points))
-    return launches
+    return launches, {**summary, "rounds": tres.rounds}
 
 
 # the probing path (core/probing.py) and the LP path (solve_sdps=0, with
@@ -2358,6 +2388,318 @@ def lpmode_phase(card: str) -> dict:
     return all_launches
 
 
+# the file entry points (the cli path): the port's writers and readers on
+# cls_32 and cls_64, and ``python -m scipsdp_tpu_torch`` on the card, in
+# process and as a subprocess
+CLI_CLS64 = (64, 128, 12, 5)       # nfeatures, nsamples, k, seed
+CLI_SET = ("branching/sdpmostfrac/priority = 3000000\n"
+           "relaxing/SDP/warmstart = TRUE\n"
+           f"limits/nodes = {BB_NODE_CAP}\n")
+# the presolve's generated row classes (tests/test_write_transformed.py's)
+CLI_GEN_SET = "".join(f"constraints/SDP/{k} = TRUE\n" for k in (
+    "diaggezerocuts", "twominorlinconss", "diagzeroimplcuts",
+    "twominorvarbounds"))
+
+
+def same_problem(a, b, path="problem") -> None:
+    """Raises unless two problems hold the same values: dataclasses field
+    by field, arrays exactly (dtype too), containers item by item."""
+    if dataclasses.is_dataclass(a):
+        if type(a).__name__ != type(b).__name__:
+            raise AssertionError(f"{path}: {type(a)} against {type(b)}")
+        for f in dataclasses.fields(a):
+            same_problem(getattr(a, f.name), getattr(b, f.name),
+                         f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"{path}: arrays differ")
+    elif isinstance(a, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{path}: {len(a)} against {len(b)} items")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_problem(x, y, f"{path}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} against {b!r}")
+
+
+def flat_fields(settings) -> dict:
+    """Every field of a settings tree, as "section.field" -> value."""
+    out = {}
+    for k, v in dataclasses.asdict(settings).items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{f}": x for f, x in v.items()})
+        else:
+            out[k] = v
+    return out
+
+
+def write_formats(prob, stem: pathlib.Path) -> dict:
+    """``prob`` written by the port's writers as .dat-s, .cbf and .cip,
+    and the .dat-s file compressed as .dat-s.gz: format -> path."""
+    paths = {}
+    for fmt, write in ((".dat-s", write_sdpa), (".cbf", write_cbf),
+                       (".cip", write_cip)):
+        paths[fmt] = str(stem) + fmt
+        write(prob, paths[fmt])
+    paths[".dat-s.gz"] = paths[".dat-s"] + ".gz"
+    with open(paths[".dat-s"], "rb") as src, \
+            gzip.open(paths[".dat-s.gz"], "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    return paths
+
+
+def read_formats(label, paths: dict) -> dict:
+    """Each file read back through ``read_problem``, timed, with spies on
+    the native tokenizer and the Python SDPA parser: the plain .dat-s
+    file must go through the tokenizer only, the .gz one through the
+    Python parser; the tokenizer's problem must equal the Python
+    parser's (itself timed on the plain file).  Returns format -> the
+    problem read."""
+    probs, rec = {}, {}
+    for fmt, path in paths.items():
+        with CallSpy(native, ("parse_sdpa_native",), timed=False) as nspy, \
+                CallSpy(reader_sdpa, ("_read_sdpa_python",),
+                        timed=False) as pspy:
+            t0 = time.perf_counter()
+            probs[fmt] = read_problem(path)
+            ms = 1e3 * (time.perf_counter() - t0)
+        tokens = [r is not None for r in nspy.results["parse_sdpa_native"]]
+        python = pspy.calls["_read_sdpa_python"]
+        want = {".dat-s": ([True], 0), ".dat-s.gz": ([False], 1)}.get(
+            fmt, ([], 0))
+        if (tokens, python) != want:
+            raise AssertionError(f"cli {label}{fmt}: native tokens {tokens}, "
+                                 f"Python parses {python}, want {want}")
+        rec[fmt] = {"bytes": pathlib.Path(path).stat().st_size,
+                    "read_ms": ms, "parser": ("native" if tokens == [True]
+                                              else "python")}
+    t0 = time.perf_counter()
+    slow = reader_sdpa._read_sdpa_python(paths[".dat-s"],
+                                         probs[".dat-s"].name)
+    rec[".dat-s"]["python_read_ms"] = 1e3 * (time.perf_counter() - t0)
+    same_problem(probs[".dat-s"], slow)
+    same_problem(probs[".dat-s"], probs[".dat-s.gz"])
+    log("cli_read", instance=label, nvars=probs[".dat-s"].nvars,
+        lp_rows={f: p.lp.nrows for f, p in probs.items()}, files=rec)
+    return probs
+
+
+def cli_result(text: str) -> dict:
+    """The status, objective, bound and gap lines the CLI printed."""
+    keys = {"SCIP-SDP-TPU status": "status", "objective value": "objval",
+            "dual bound": "dual_bound", "gap": "gap"}
+    out = {}
+    for line in text.splitlines():
+        key, _, value = line.partition(":")
+        if key.strip() in keys:
+            value = value.strip()
+            out[keys[key.strip()]] = (value if key.startswith("SCIP")
+                                      else float(value))
+    return out
+
+
+def cli_solve(argv, syncs=False) -> dict:
+    """``__main__.main(argv)`` in this process, its stdout captured, with
+    spies on ``solve_misdp`` (its result, settings and #1 launches) and
+    on turbo; in CUDA sync debug mode when ``syncs``.  Raises unless it
+    returns 0."""
+    buf = io.StringIO()
+    with CallSpy(bb_module, ("solve_misdp",), timed=False) as spy, \
+            TurboSpy() as tspy, contextlib.redirect_stdout(buf):
+        with (sync_sites() if syncs else contextlib.nullcontext([])) as \
+                sites:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv}: exit {rc}\n{buf.getvalue()}")
+    res = spy.results["solve_misdp"][0]
+    (_, settings), _ = spy.args["solve_misdp"][0]
+    turbo_res = tspy.results["solve_turbo"]
+    return {"argv": argv, "wall_s": wall, "text": buf.getvalue(),
+            "printed": cli_result(buf.getvalue()), "result": res,
+            "settings": settings,
+            "nodes": res.stats.nodes, "relax_solves": res.stats.relax_solves,
+            "turbo_rounds": (turbo_res[0].rounds if turbo_res
+                             and turbo_res[0] is not None else None),
+            "cholesky_lanes": spy.launches["solve_misdp"],
+            "host_syncs": len(sites) if syncs else None}
+
+
+def check_optimum(label, run, prob, optimum, feastol) -> dict:
+    """The printed status OPTIMAL and objective within BB_REL of
+    ``optimum``; the incumbent feasible in ``prob`` by
+    incumbent_violation.  Returns the run's summary for the log."""
+    got = run["printed"]
+    if got.get("status") != "OPTIMAL" or abs(
+            got["objval"] - optimum) > BB_REL * abs(optimum):
+        raise AssertionError(f"cli {label}: printed {got}, want OPTIMAL at "
+                             f"{optimum}")
+    viol = incumbent_violation(prob, run["result"].best_y)
+    if max(viol.values()) > feastol:
+        raise AssertionError(f"cli {label}: incumbent infeasible: {viol}")
+    return {k: run[k] for k in ("wall_s", "nodes", "relax_solves",
+                                "turbo_rounds", "cholesky_lanes",
+                                "host_syncs")} | {
+        "printed": got, "incumbent_violation": viol,
+        "rel_err_vs_jax_optimum": abs(got["objval"] - optimum) / optimum}
+
+
+def cli_subprocess(argv) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "scipsdp_tpu_torch", *argv],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parent)
+
+
+def cli_phase(card: str, turbo_tree: dict) -> dict:
+    """The file entry points (the cli path), every launch counter set to
+    0 just before and read just after.  cls_32 and cls_64 written by the
+    port's writers as .dat-s, .dat-s.gz, .cbf and .cip and read back
+    (read_formats).  Then ``python -m scipsdp_tpu_torch`` in process:
+    the cls_32 .dat-s, .cbf and .cip files at ``--batch-size 32`` to
+    OPTIMAL at BB_OPTIMUM with a feasible incumbent, beside the turbo
+    phase's in-memory tree (``turbo_tree``; the writers re-encode bounds
+    as LP rows, so the trees may differ: optima are compared, not node
+    counts), the .dat-s run again in CUDA sync debug mode for its host
+    syncs; ``--settings`` with a .set file this phase writes (the loaded
+    settings field by field, the tree's optimum); ``--slater --node-limit
+    1 --write-transformed`` with the presolve's generated row classes
+    set on (CLI_GEN_SET) on the card and with ``--cpu`` (the same two
+    Slater lines, the same file, which reads back with the presolved
+    problem's variables and its generated rows); mkp_12 ``--lp-approx``
+    to 30.0; cls_64 ``--node-limit 1`` (the root bound).  Last, two
+    subprocesses: the cls_32 .dat-s file (exit 0, the objective printed)
+    and ``--mesh`` (a non-zero exit naming Queue 1 item 8).  Returns the
+    counts."""
+    feastol = Settings().bb.feastol
+    cls32 = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    cls64 = cardinality_least_squares(*CLI_CLS64[:3], seed=CLI_CLS64[3])
+    mkp = min_k_partition(*TURBO_MKP[:3], seed=TURBO_MKP[3])
+    t0 = time.perf_counter()
+    if native.get_sdpa_lib() is None:
+        raise AssertionError("cli: the SDPA tokenizer did not build (g++)")
+    log("cli_build", tokenizer_build_s=time.perf_counter() - t0,
+        library=str(native.library_path(native._SRC_PATH,
+                                        "libsdpaparse.so")))
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        files = {"cls_32": write_formats(cls32, tmp / "cls_32"),
+                 "cls_64": write_formats(cls64, tmp / "cls_64")}
+        probs = {k: read_formats(k, v) for k, v in files.items()}
+        if probs["cls_32"][".cip"].lp.nrows != cls32.lp.nrows:
+            raise AssertionError("cli cls_32.cip: LP rows changed")
+
+        trees = {}
+        for fmt in (".dat-s", ".cbf", ".cip"):
+            run = cli_solve([files["cls_32"][fmt], "--batch-size",
+                             str(BB_BATCH), "-q"])
+            trees[fmt] = check_optimum(f"cls_32{fmt}", run,
+                                       probs["cls_32"][fmt], BB_OPTIMUM,
+                                       feastol)
+        run = cli_solve([files["cls_32"][".dat-s"], "--batch-size",
+                         str(BB_BATCH), "-q"], syncs=True)
+        trees[".dat-s"]["host_syncs"] = run["host_syncs"]
+        log("cli_trees", instance="cls_32", batch=BB_BATCH, card=card,
+            trees=trees, turbo_phase_tree=turbo_tree)
+
+        setfile = tmp / "tree.set"
+        setfile.write_text(CLI_SET)
+        run = cli_solve([files["cls_32"][".dat-s"], "--batch-size",
+                         str(BB_BATCH), "-q", "--settings", str(setfile)])
+        want = Settings(
+            ipm=IPMSettings(gaptol=1e-5, feastol=1e-5),
+            bb=BBSettings(feastol=1e-5, node_limit=BB_NODE_CAP,
+                          time_limit=1e20, batch_size=BB_BATCH,
+                          branching_rule="mostfrac", warmstart=True))
+        got = flat_fields(run["settings"])
+        wrong = {k: (v, got[k]) for k, v in flat_fields(want).items()
+                 if got[k] != v}
+        if wrong:
+            raise AssertionError(f"cli --settings: fields {wrong}")
+        log("cli_settings", instance="cls_32", card=card, set_file=CLI_SET,
+            **check_optimum("cls_32 --settings", run, probs["cls_32"][
+                ".dat-s"], BB_OPTIMUM, feastol))
+
+        slater = {}
+        genfile = tmp / "gen.set"
+        genfile.write_text(CLI_GEN_SET)
+        for dev, extra in (("cuda", []), ("cpu", ["--cpu"])):
+            out = str(tmp / f"transformed_{dev}.cbf")
+            run = cli_solve([files["cls_32"][".dat-s"], "--batch-size",
+                             str(BB_BATCH), "-q", "--slater",
+                             "--node-limit", "1", "--settings", str(genfile),
+                             "--write-transformed", out, *extra])
+            slater[dev] = ([ln for ln in run["text"].splitlines()
+                            if "Slater condition" in ln],
+                           pathlib.Path(out).read_bytes(), run["wall_s"])
+        if slater["cuda"][:2] != slater["cpu"][:2] or \
+                len(slater["cuda"][0]) != 2:
+            raise AssertionError(f"cli --slater: {slater['cuda'][0]} on the "
+                                 f"card, {slater['cpu'][0]} on the CPU "
+                                 f"(transformed files equal: "
+                                 f"{slater['cuda'][1] == slater['cpu'][1]})")
+        presolved = presolve_problem(probs["cls_32"][".dat-s"],
+                                     run["settings"])
+        back = read_problem(str(tmp / "transformed_cuda.cbf"))
+        rows = transformed_for_write(presolved).lp.nrows
+        if back.nvars != presolved.nvars or back.lp.nrows != rows or \
+                rows <= probs["cls_32"][".dat-s"].lp.nrows:
+            raise AssertionError(f"cli --write-transformed: {back.nvars} "
+                                 f"variables, {back.lp.nrows} rows; want "
+                                 f"{presolved.nvars}, {rows}")
+        log("cli_slater", instance="cls_32", card=card,
+            lines=slater["cuda"][0], wall_s={k: v[2] for k, v in
+                                             slater.items()},
+            transformed={"nvars": back.nvars, "lp_rows": back.lp.nrows,
+                         "read_lp_rows": probs["cls_32"][".dat-s"].lp.nrows,
+                         "propagation_rows": (
+                             0 if presolved.proprows is None
+                             else presolved.proprows.nrows)})
+
+        mkp_path = str(tmp / "mkp_12.dat-s")
+        write_sdpa(mkp, mkp_path)
+        run = cli_solve([mkp_path, "--lp-approx", "--batch-size",
+                         str(TURBO_MKP_BATCH), "-q"])
+        log("cli_lp_approx", instance="mkp_12", batch=TURBO_MKP_BATCH,
+            card=card, **check_optimum("mkp_12 --lp-approx", run,
+                                       read_problem(mkp_path),
+                                       TURBO_MKP_OPTIMUM, feastol),
+            nenforce_sdp=run["result"].stats.nenforce_sdp)
+
+        run = cli_solve([files["cls_64"][".dat-s"], "--batch-size",
+                         str(BB_BATCH), "-q", "--node-limit", "1"])
+        if run["nodes"] < 1 or not np.isfinite(run["printed"]["dual_bound"]):
+            raise AssertionError(f"cli cls_64 root: {run['printed']}")
+        log("cli_root", instance="cls_64", card=card,
+            **{k: run[k] for k in ("printed", "wall_s", "nodes",
+                                   "cholesky_lanes")})
+        launches = counts()
+        if launches["cholesky_lanes"] == 0:
+            raise AssertionError("cli: cholesky_lanes not launched")
+
+        t0 = time.perf_counter()
+        proc = cli_subprocess([files["cls_32"][".dat-s"], "-q",
+                               "--batch-size", str(BB_BATCH)])
+        wall = time.perf_counter() - t0
+        printed = cli_result(proc.stdout)
+        if proc.returncode != 0 or abs(printed.get("objval", np.inf)
+                                       - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+            raise AssertionError(f"cli subprocess: exit {proc.returncode}, "
+                                 f"{printed}\n{proc.stderr[-2000:]}")
+        mesh = cli_subprocess([files["cls_32"][".dat-s"], "-q", "--mesh"])
+        if mesh.returncode == 0 or "Queue 1 item 8" not in mesh.stderr:
+            raise AssertionError(f"cli --mesh: exit {mesh.returncode}\n"
+                                 f"{mesh.stderr[-2000:]}")
+        log("cli_subprocess", card=card, wall_s=wall, printed=printed,
+            mesh_exit=mesh.returncode,
+            mesh_error=mesh.stderr.strip().splitlines()[-1])
+    return launches
+
+
 def tree_profile(fn) -> dict:
     """Device busy time and host syncs of one B&B solve: one call under
     torch.profiler with CUDA activity only (the tree launches ~150,000
@@ -2735,7 +3077,7 @@ def main() -> int:
     paths["sdpi"] = sdpi_phase(cases[0], settings, f64_outs[0], device)
     sdpi_cpu_reference(device, settings)
     paths["bb"], host_tree = bb_phase(card)
-    paths["turbo"] = turbo_phase(card, host_tree)
+    paths["turbo"], turbo_tree = turbo_phase(card, host_tree)
     paths["refine"], refine_outs = refine_phase(cases, rset, f64_outs)
     paths["fused"] = fused_phase(cases, fset, f64_outs, refine_outs)
     paths.update(pallas_phase(cases, pallas, f64_outs))
@@ -2763,6 +3105,7 @@ def main() -> int:
             profile_one(label, data, req, s, route)
     paths["probing"] = probing_phase(card)
     paths["lpmode"] = lpmode_phase(card)
+    paths["cli"] = cli_phase(card, turbo_tree)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -11,34 +11,25 @@ keyed by the pool ids, so no feature is lost relative to the Python heap.
 
 A copy of the JAX package's ``native/frontier.py`` (host code, no JAX);
 only the library's place differs: ``g++`` builds ``frontier.cpp`` at first
-use into ``build/scipsdp_tpu_torch/native/<hash>/libfrontier.so`` beside
-the package (the hash covers the source), through a temporary file, so
-processes that build at once never load a partial library.
+use into ``build/scipsdp_tpu_torch/native/<hash>/libfrontier.so``
+(``native.build_library``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import heapq
 import itertools
-import os
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from scipsdp_tpu_torch.native import build_library
+
 _SRC_PATH = Path(__file__).resolve().parent / "frontier.cpp"
 _lib = None
 _tried = False
-
-
-def library_path() -> Path:
-    """Where ``frontier.cpp`` is built (keyed by its source)."""
-    key = hashlib.sha256(_SRC_PATH.read_bytes()).hexdigest()[:16]
-    return (Path(__file__).resolve().parent.parent.parent / "build"
-            / "scipsdp_tpu_torch" / "native" / key / "libfrontier.so")
 
 
 def get_frontier_lib() -> Optional[ctypes.CDLL]:
@@ -46,18 +37,9 @@ def get_frontier_lib() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    lib_path = library_path()
-    if not lib_path.is_file():
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        try:
-            lib_path.parent.mkdir(parents=True, exist_ok=True)
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", str(tmp),
-                 str(_SRC_PATH)],
-                check=True, capture_output=True, timeout=120)
-            os.replace(tmp, lib_path)
-        except Exception:
-            return None
+    lib_path = build_library(_SRC_PATH, "libfrontier.so")
+    if lib_path is None:
+        return None
     try:
         lib = ctypes.CDLL(str(lib_path))
         dp = ctypes.POINTER(ctypes.c_double)

@@ -33,6 +33,7 @@ from scipsdp_tpu_torch.core import rank1 as tr1
 from scipsdp_tpu_torch.core import symmetry as tsym
 from scipsdp_tpu_torch.interop import problem_from_jax, settings_from_jax
 from scipsdp_tpu_torch.models.problem import densify as tdensify
+from scipsdp_tpu_torch import native as tnative
 from scipsdp_tpu_torch.native import frontier as tfront
 from scipsdp_tpu_torch.ops import cmir as tcmir
 
@@ -298,7 +299,7 @@ def test_frontier_copy(store, seed):
 def test_frontier_library_beside_the_package():
     """The port builds its node store under build/, never beside the
     source, and loads it from there."""
-    path = tfront.library_path()
+    path = tnative.library_path(tfront._SRC_PATH, "libfrontier.so")
     assert tfront.get_frontier_lib() is not None
     assert path.is_file() and "build" in path.parts
     assert not (tfront._SRC_PATH.parent / "libfrontier.so").exists()

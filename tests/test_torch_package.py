@@ -56,6 +56,24 @@ def test_import_sets_no_torch_flags():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_public_names_load_lazily():
+    """``import scipsdp_tpu_torch`` loads neither torch nor a submodule;
+    each public name loads its module on first use."""
+    code = ("import sys\n"
+            "import scipsdp_tpu_torch as p\n"
+            "heavy = [m for m in sys.modules if m == 'torch' or "
+            "m.startswith('scipsdp_tpu_torch.')]\n"
+            "assert not heavy, heavy\n"
+            "from scipsdp_tpu_torch.core import branchbound\n"
+            "from scipsdp_tpu_torch.models import io\n"
+            "assert p.solve_misdp is branchbound.solve_misdp\n"
+            "assert p.read_problem is io.read_problem\n"
+            "assert all(getattr(p, n) is not None for n in p.__all__)\n"
+            "assert 'enable_compilation_cache' not in p.__all__\n")
+    proc = _run(code, REPO)
+    assert proc.returncode == 0, proc.stderr
+
+
 def _smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
