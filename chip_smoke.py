@@ -194,12 +194,34 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    --write-transformed`` on the card and on the CPU (the same lines and
    file; the file reads back with the generated rows), mkp_12
    ``--lp-approx`` to 30.0, cls_64's root; two subprocesses: cls_32 to
-   its optimum, and ``--mesh``, which must exit non-zero naming Queue 1
-   item 8.
+   its optimum, and with ``--mesh`` (one card: no mesh) to the same.
+15. mesh path (``parallel/mesh.py``) on virtual meshes of 2 and 4 cuda:0
+   entries (so it measures the lockstep's cost, not multi-card scaling):
+   cls_32/direct (B=32) through ``sharded_solver`` against the unsharded
+   ``ipm_solve`` of the same call, float64 (equal statuses, iterations
+   and float64 iterations, dobj within 1e-9 relative) and the fused
+   refine route (equal statuses, iterations within 3, dobj within 5e-6);
+   each solve's flag reads counted in CUDA sync debug mode (one a
+   iteration, plus the last), its walls, #1 launches and host syncs
+   logged.  Then cls_32 at B=32 through ``solve_misdp(use_mesh=True,
+   mesh_devices=n)`` with the solver's mesh made a virtual one: the host
+   loop (``SDPInterface(mesh=...)``'s ladder) and turbo
+   (``solve_turbo(mesh=...)``, width B), OPTIMAL at BB_OPTIMUM, feasible
+   incumbents; nodes, rounds, wall, #1 beside the unsharded trees.  Then
+   the card as it is: ``use_mesh=True`` on one card builds no mesh, and
+   ``mesh_devices=2`` raises ValueError before any launch.
+16. multihost path (``parallel/multihost.py``): two processes on the card
+   join a gloo group and solve with ``solve_misdp_distributed`` under a
+   deadline: tests/test_multihost.py's steal instance to -2.3 in both
+   (nodes stolen and donated), cls_32 at B=32 to BB_OPTIMUM in both;
+   each process's wall, nodes, collectives and #1 beside the
+   single-process host loop's tree.
 
 The kernel launch counters are set to 0 just before each path (float64,
 sdpi, bb, turbo, refine, fused, on_pallas, refine_pallas, lite_pallas,
-probing, lpmode, cli) and read just after.  The line before the
+probing, lpmode, cli, mesh) and read just after (the mesh path counts its
+sharded runs only; the multihost path sums the two processes' counters,
+each from 0).  The line before the
 last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.  Float32 matmuls run in full float32
 (TF32 off for matmul and cuDNN) except inside the TF32 check.  The whole
@@ -216,6 +238,7 @@ import io
 import json
 import pathlib
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -246,7 +269,9 @@ from scipsdp_tpu_torch.models.writers import (transformed_for_write,
 from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.cuts import separate_eigenvector_cuts
+from scipsdp_tpu_torch.ops import ipm as ipm_module
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
+from scipsdp_tpu_torch.parallel.mesh import make_mesh, sharded_solver
 from scipsdp_tpu_torch.utils.config import (BBSettings, IPMSettings,
                                             Settings, resolve_backend_autos)
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
@@ -335,29 +360,38 @@ PEAK_TF32_FLOPS = 495e12
 # B=8, (14720,) x 10 mkp_10's at B=1472; (1, 10) x 1 the B = 1 solves of a
 # block-free LP (the inner-LP and rounding LPs: one 1 x 1 dummy bucket),
 # (1, 10) x 65 cls_32's B = 1 solves (primal Slater, LP mode's exact
-# enforcement)
+# enforcement); (16, 10) and (8, 10) x 65 the ladders of one shard of
+# cls_32 B=32 over a mesh of 2 and of 4, (32, 1) x 65 turbo's psd_feasible
+# at the mesh's fixed width 32, (2, 10) x 1 the ladders of the
+# multi-process steal instance (B = 2, one 1 x 1 block)
 CHOL_SHAPES = [((3,), 5, 0), ((16,), 43, 0), ((130,), 17, 0), ((1,), 64, 0),
                ((384,), 65, 0), ((32, 10), 65, 0), ((320,), 97, 0),
                ((320,), 129, 0), ((8, 10), 129, 0), ((8, 2), 129, 4),
                ((14720,), 10, 0), ((4,), 300, 0), ((1, 10), 1, 0),
-               ((1, 10), 65, 0)]
+               ((1, 10), 65, 0), ((16, 10), 65, 0), ((8, 10), 65, 0),
+               ((32, 1), 65, 0), ((2, 10), 1, 0)]
 CHOL_MAIN = ((32, 10), 65, 0)
 DF32_TOL = 1e-11
 # the refine tier's shapes per instance: (label, mp, K n^2, LP rows P, B,
-# K, n); cls_32 B=32 is the main path
+# K, n); cls_32 B=32 is the main path, B=16 and B=8 one shard of it over
+# a mesh of 2 and of 4
 DF32_SHAPES = [("cls_32 B=32", 66, 4225, 65, 32, 1, 65),
+               ("cls_32 B=16", 66, 4225, 65, 16, 1, 65),
+               ("cls_32 B=8", 66, 4225, 65, 8, 1, 65),
                ("cls_64 B=8", 130, 16641, 129, 8, 1, 129),
                ("mkp_10 B=32", 46, 100, 1, 32, 1, 10)]
 DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
              "contract_short64": "cls_32 B=32 W^T v",
              "contract_long64": "cls_32 B=32 W u"}
 # the fused kernels' shapes: (label, B, K, n, mp, F = K n^2 + LP rows,
-# padded, fixed0); the first three are DF32_SHAPES', then
+# padded, fixed0); the first five are DF32_SHAPES', then
 # tests/test_fused.py's inputs, then two short-F cases, then an odd F
 # (no cluster size cuts it into whole slices; 4-byte copies); a padded
 # case zeroes the last 3 rows and columns of its last block, a fixed0 case
 # fixes every row of instance 0 (the Schur solve returns 0 there)
 FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False, False),
+                ("cls_32 B=16", 16, 1, 65, 66, 4290, False, False),
+                ("cls_32 B=8", 8, 1, 65, 66, 4290, False, False),
                 ("cls_64 B=8", 8, 1, 129, 130, 16770, False, False),
                 ("mkp_10 B=32", 32, 1, 10, 46, 101, True, False),
                 ("test_fused", 4, 2, 13, 9, 37, True, False),
@@ -2572,7 +2606,7 @@ def cli_phase(card: str, turbo_tree: dict) -> dict:
     problem's variables and its generated rows); mkp_12 ``--lp-approx``
     to 30.0; cls_64 ``--node-limit 1`` (the root bound).  Last, two
     subprocesses: the cls_32 .dat-s file (exit 0, the objective printed)
-    and ``--mesh`` (a non-zero exit naming Queue 1 item 8).  Returns the
+    and ``--mesh`` (one card: no mesh, the same optimum).  Returns the
     counts."""
     feastol = Settings().bb.feastol
     cls32 = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
@@ -2690,13 +2724,345 @@ def cli_phase(card: str, turbo_tree: dict) -> dict:
                                        - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
             raise AssertionError(f"cli subprocess: exit {proc.returncode}, "
                                  f"{printed}\n{proc.stderr[-2000:]}")
-        mesh = cli_subprocess([files["cls_32"][".dat-s"], "-q", "--mesh"])
-        if mesh.returncode == 0 or "Queue 1 item 8" not in mesh.stderr:
-            raise AssertionError(f"cli --mesh: exit {mesh.returncode}\n"
-                                 f"{mesh.stderr[-2000:]}")
+        mesh = cli_subprocess([files["cls_32"][".dat-s"], "-q",
+                               "--batch-size", str(BB_BATCH), "--mesh"])
+        mesh_printed = cli_result(mesh.stdout)
+        if mesh.returncode != 0 or abs(mesh_printed.get(
+                "objval", np.inf) - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+            raise AssertionError(f"cli --mesh: exit {mesh.returncode}, "
+                                 f"{mesh_printed}\n{mesh.stderr[-2000:]}")
         log("cli_subprocess", card=card, wall_s=wall, printed=printed,
-            mesh_exit=mesh.returncode,
-            mesh_error=mesh.stderr.strip().splitlines()[-1])
+            mesh_exit=mesh.returncode, mesh_printed=mesh_printed)
+    return launches
+
+
+# the mesh path (parallel/mesh.py): virtual meshes of MESH_SHARDS cuda:0
+# entries (one card: the lockstep's cost, not multi-card scaling)
+MESH_SHARDS = (2, 4)
+MESH_F64_BAR = 1e-9                # dobj, relative to 1 + |dobj|
+MESH_REFINE_BAR = 5e-6             # PERF.md §2's float32 bars
+MESH_REFINE_ITERS = 3
+
+
+def virtual_mesh(n: int, axes=("nodes",)):
+    """A mesh of n entries of cuda:0."""
+    return make_mesh(n, axes, devices=[torch.device("cuda", 0)] * n)
+
+
+def ipm_read_line() -> int:
+    """ops/ipm.py's line of the lockstep's flag read (tagged there)."""
+    lines = pathlib.Path(ipm_module.__file__).read_text().splitlines()
+    return next(i + 1 for i, line in enumerate(lines)
+                if "# host read: the flags" in line)
+
+
+class Launches:
+    """#1 and every other kernel's launches of the calls made through
+    ``run``, accumulated; calls made otherwise are not counted."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(KERNELS, 0)
+
+    def run(self, fn):
+        before = counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            for k, v in counts().items():
+                self.total[k] += v - before[k]
+
+
+def sharded_solves(case, routes, spent: Launches) -> dict:
+    """cls_32/direct through ``sharded_solver`` on MESH_SHARDS virtual
+    meshes against the unsharded ``ipm_solve`` of the same call, per
+    route: float64 with equal statuses and iterations and dobj within
+    MESH_F64_BAR, the fused refine route with equal statuses, iterations
+    within MESH_REFINE_ITERS and dobj within MESH_REFINE_BAR.  Each
+    sharded solve reads its flags once per iteration (the lockstep's one
+    host sync): its sync sites hold the tagged read iters + 1 times.
+    Returns the walls."""
+    label, dense, data, req, _ = case
+    read = f"ipm.py:{ipm_read_line()}"
+    out = {}
+    for route, s in routes.items():
+        timed(data, req, s)                      # warm-up
+        ref_wall, ref = timed(data, req, s)
+        for n in MESH_SHARDS:
+            solve = sharded_solver(data, s, virtual_mesh(n))
+            spent.run(lambda: solve(*req))       # warm-up
+            l0 = kernels.cholesky_lanes.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = spent.run(lambda: solve(*req))
+            wall = time.perf_counter() - t0
+            l1 = kernels.cholesky_lanes.launches - l0
+            with sync_sites() as sites:
+                spent.run(lambda: solve(*req))
+            reads = sites.count(read)
+            if reads != res.iters + 1:
+                raise AssertionError(f"mesh {route} x{n}: {reads} flag reads "
+                                     f"in {res.iters} iterations")
+            if route == "f64":
+                dev = agree(f"mesh {route} x{n}", res, ref, s.gaptol,
+                            "ipm_solve", iters_tol=0, bar=MESH_F64_BAR)
+            else:
+                dev = agree(f"mesh {route} x{n}", res, ref, s.gaptol,
+                            "ipm_solve", iters_tol=MESH_REFINE_ITERS,
+                            bar=MESH_REFINE_BAR)
+            if route == "f64" and res.f64_iters != ref.f64_iters:
+                raise AssertionError(f"mesh f64 x{n}: f64 iterations "
+                                     f"{res.f64_iters} vs {ref.f64_iters}")
+            out[f"{route} x{n}"] = wall
+            log("mesh_solve", request=label, route=route, shards=n,
+                B=int(res.status.shape[0]), iters=res.iters,
+                unsharded_iters=ref.iters, f64_iters=res.f64_iters,
+                max_rel_dobj_vs_unsharded=dev, wall_s=wall,
+                unsharded_wall_s=ref_wall, cholesky_lanes=l1,
+                flag_reads_per_iteration=reads / (res.iters + 1),
+                host_syncs=len(sites),
+                host_syncs_per_iteration=len(sites) / res.iters,
+                sync_sites=sorted(collections.Counter(sites).items()))
+    return out
+
+
+def mesh_trees(card, spent: Launches, host_tree, turbo_tree) -> dict:
+    """cls_32 at B=32 through ``solve_misdp(use_mesh=True,
+    mesh_devices=n)`` with the solver's mesh made a virtual one: the host
+    loop (turbo="off": every batch through ``SDPInterface(mesh=...)``'s
+    ladder) and turbo ("auto": ``solve_turbo(mesh=...)``, width fixed at
+    B), each OPTIMAL at BB_OPTIMUM within BB_REL with a feasible
+    incumbent; nodes, rounds, wall and #1 beside the unsharded trees of
+    bb_phase and turbo_phase."""
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    trees = {}
+    real = bb_module.make_mesh
+    bb_module.make_mesh = lambda n, axes, device=None: virtual_mesh(n, axes)
+    try:
+        for engine in ("off", "auto"):
+            for n in MESH_SHARDS:
+                s = dataclasses.replace(
+                    bb_settings(batch_size=BB_BATCH, node_limit=BB_NODE_CAP,
+                                turbo=engine), use_mesh=True, mesh_devices=n)
+                with TurboSpy() as spy:
+                    l0 = kernels.cholesky_lanes.launches
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = spent.run(lambda: solve_misdp(prob, s))
+                    wall = time.perf_counter() - t0
+                tres = spy.results["solve_turbo"]
+                label = f"{'turbo' if engine == 'auto' else 'host'} x{n}"
+                if engine == "auto" and (len(tres) != 1 or tres[0] is None):
+                    raise AssertionError(f"mesh {label}: solve_turbo {tres}")
+                if res.status.name != "OPTIMAL" or abs(
+                        res.objval - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+                    raise AssertionError(f"mesh {label}: {res}, want OPTIMAL "
+                                         f"at {BB_OPTIMUM}")
+                viol = incumbent_violation(prob, res.best_y)
+                if max(viol.values()) > s.bb.feastol:
+                    raise AssertionError(f"mesh {label}: incumbent "
+                                         f"infeasible: {viol}")
+                trees[label] = {**bb_summary(res, wall),
+                                "rounds": tres[0].rounds if tres else None,
+                                "widths": spy.widths,
+                                "cholesky_lanes": kernels.cholesky_lanes
+                                .launches - l0, "incumbent_violation": viol}
+    finally:
+        bb_module.make_mesh = real
+    log("mesh_trees", instance="cls_32", batch=BB_BATCH, card=card,
+        trees=trees, unsharded_host_tree=host_tree,
+        unsharded_turbo_tree=turbo_tree)
+    return trees
+
+
+def mesh_phase(card, case, routes, host_tree, turbo_tree) -> dict:
+    """The mesh path: sharded_solves, mesh_trees, then the card as it is:
+    ``solve_misdp(use_mesh=True)`` on one card builds no mesh (the tree
+    at the optimum), and ``mesh_devices=2`` raises ValueError before any
+    kernel launch.  Every launch counter set to 0 just before and the
+    sharded runs' launches returned."""
+    reset_counts()
+    spent = Launches()
+    walls = sharded_solves(case, routes, spent)
+    mesh_trees(card, spent, host_tree, turbo_tree)
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    with CallSpy(bb_module, ("make_mesh",), timed=False) as spy:
+        t0 = time.perf_counter()
+        res = solve_misdp(prob, dataclasses.replace(
+            bb_settings(batch_size=BB_BATCH, node_limit=BB_NODE_CAP),
+            use_mesh=True))
+        wall = time.perf_counter() - t0
+    if spy.calls["make_mesh"] or abs(res.objval - BB_OPTIMUM) > \
+            BB_REL * BB_OPTIMUM:
+        raise AssertionError(f"mesh one card: make_mesh called "
+                             f"{spy.calls['make_mesh']} times, {res}")
+    before = counts()
+    try:
+        solve_misdp(prob, dataclasses.replace(Settings(), use_mesh=True,
+                                              mesh_devices=2))
+    except ValueError as err:
+        error = str(err)
+    else:
+        raise AssertionError("mesh_devices=2 on one card did not raise")
+    if counts() != before:
+        raise AssertionError("mesh_devices=2: kernels launched before the "
+                             "ValueError")
+    log("mesh_one_card", card=card, tree=bb_summary(res, wall),
+        mesh_devices_2_error=error, walls=walls)
+    if spent.total["cholesky_lanes"] == 0:
+        raise AssertionError("mesh: cholesky_lanes not launched")
+    return spent.total
+
+
+# multi-process branch-and-bound (parallel/multihost.py): two processes on
+# the card over gloo, each with a deadline
+MULTIHOST_DEADLINE_S = 300
+MULTIHOST_WORKER = r"""
+import importlib, json, sys, time
+pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+import numpy as np
+import torch
+# the host side's tensors are tiny: one thread each, or the processes'
+# idle OpenMP workers spin against each other's host work
+torch.set_num_threads(1)
+import torch.distributed as dist
+from scipsdp_tpu_torch.models.families import cardinality_least_squares
+from scipsdp_tpu_torch.models.problem import (INF, LinearConstraints, MISDP,
+                                              SDPBlock)
+from scipsdp_tpu_torch.parallel import multihost
+from scipsdp_tpu_torch.utils.config import BBSettings, Settings
+
+gathers = [0]
+allgather = multihost.allgather
+
+
+def counted(vec):
+    gathers[0] += 1
+    return allgather(vec)
+
+
+multihost.allgather = counted
+t0 = time.perf_counter()
+assert multihost.initialize(f"127.0.0.1:{port}", nproc, pid) == (pid, nproc)
+joined = time.perf_counter() - t0
+
+
+probe = importlib.import_module("scipsdp_tpu_torch.ops.kernels")
+
+
+def run(label, prob, settings):
+    gathers[0] = 0
+    l0 = probe.cholesky_lanes.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = multihost.solve_misdp_distributed(prob, settings, sync_every=1)
+    torch.cuda.synchronize()
+    return {"label": label, "status": res.status.name, "objval": res.objval,
+            "dual_bound": res.dual_bound, "nodes": res.stats.nodes,
+            "relax_solves": res.stats.relax_solves,
+            "ipm_iterations": res.stats.ipm_iterations,
+            "nstolen": res.stats.nstolen, "ndonated": res.stats.ndonated,
+            "syncs": gathers[0], "wall_s": time.perf_counter() - t0,
+            "cholesky_lanes": probe.cholesky_lanes.launches - l0,
+            "best_y": None if res.best_y is None else res.best_y.tolist()}
+
+
+m = 6
+blk = SDPBlock(size=1, var=[0], row=[0], col=[0], val=[1.0],
+               const_row=[0], const_col=[0], const_val=[1.0])
+steal = MISDP(nvars=m, obj=-np.array([1.0, 1.1, 1.2, 1.3, 0.9, 0.8]),
+              lb=np.zeros(m), ub=np.ones(m), integral=np.ones(m, bool),
+              blocks=[blk], name="steal",
+              lp=LinearConstraints.from_rows(
+                  [(list(range(m)), [1.0] * m, -INF, 2.0)]))
+cls = cardinality_least_squares(%d, %d, %d, seed=%d)
+out = {"pid": pid, "join_s": joined, "device": torch.cuda.get_device_name(0),
+       "runs": [run("steal", steal, Settings(bb=BBSettings(batch_size=2))),
+                run("cls_32", cls, Settings(bb=BBSettings(
+                    batch_size=%d, node_limit=%d)))],
+       "launches": {k: getattr(importlib.import_module(mod), k).launches
+                    for k, mod in %r.items()}}
+dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_phase(card, host_tree) -> dict:
+    """Two processes on the card, joined in a gloo group
+    (``parallel/multihost.py``), each solving with
+    ``solve_misdp_distributed`` under a deadline: JAX's steal instance
+    (tests/test_multihost.py) to -2.3 in both, with nodes stolen and
+    donated, then cls_32 at B=32 to BB_OPTIMUM within BB_REL in both (a
+    feasible incumbent where one is held); each process's wall, nodes,
+    collectives and #1 launches beside the single-process host loop's
+    tree (bb_phase: a sync hook keeps turbo off).  Returns the launches
+    of both processes (each counts from 0)."""
+    script = MULTIHOST_WORKER % (*BB_INSTANCE, BB_BATCH, BB_NODE_CAP,
+                                 {k: w.__module__ for k, (w, _) in
+                                  KERNELS.items()})
+    port = free_port()
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", script, str(i), "2",
+                               str(port)], cwd=root, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTIHOST_DEADLINE_S))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"multihost: the processes did not finish in "
+                             f"{MULTIHOST_DEADLINE_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    res = []
+    for p, (stdout, stderr) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"multihost: exit {p.returncode}\n"
+                                 f"{stderr[-3000:]}")
+        res.append(json.loads(stdout.strip().splitlines()[-1]))
+    prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
+    for r in res:
+        steal, cls = r["runs"]
+        if steal["status"] != "OPTIMAL" or abs(steal["objval"] + 2.3) > 1e-4:
+            raise AssertionError(f"multihost steal, process {r['pid']}: "
+                                 f"{steal}")
+        if cls["status"] != "OPTIMAL" or abs(
+                cls["objval"] - BB_OPTIMUM) > BB_REL * BB_OPTIMUM:
+            raise AssertionError(f"multihost cls_32, process {r['pid']}: "
+                                 f"{cls}, want OPTIMAL at {BB_OPTIMUM}")
+        if cls["best_y"] is not None:
+            viol = incumbent_violation(prob, np.asarray(cls["best_y"]))
+            if max(viol.values()) > Settings().bb.feastol:
+                raise AssertionError(f"multihost cls_32, process "
+                                     f"{r['pid']}: incumbent infeasible "
+                                     f"{viol}")
+            cls["incumbent_violation"] = viol
+        cls.pop("best_y")
+        steal.pop("best_y")
+    steals = [r["runs"][0] for r in res]
+    if not sum(r["nstolen"] for r in steals) or \
+            not sum(r["ndonated"] for r in steals):
+        raise AssertionError(f"multihost steal: nothing stolen or donated: "
+                             f"{steals}")
+    launches = {k: sum(r["launches"][k] for r in res) for k in KERNELS}
+    if launches["cholesky_lanes"] == 0:
+        raise AssertionError("multihost: cholesky_lanes not launched")
+    log("multihost", card=card, processes=2, wall_s=wall,
+        per_process=[{k: r[k] for k in ("pid", "device", "join_s", "runs")}
+                     for r in res],
+        single_process_host_tree=host_tree, launches=launches)
     return launches
 
 
@@ -3106,6 +3472,10 @@ def main() -> int:
     paths["probing"] = probing_phase(card)
     paths["lpmode"] = lpmode_phase(card)
     paths["cli"] = cli_phase(card, turbo_tree)
+    paths["mesh"] = mesh_phase(card, cases[0], {"f64": settings,
+                                                "refine_fused": fset},
+                               host_tree, turbo_tree)
+    paths["multihost"] = multihost_phase(card, host_tree)
 
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

@@ -52,7 +52,8 @@ def main(argv=None) -> int:
                     help="solve on the CPU instead of the CUDA card")
     ap.add_argument("--mesh", action="store_true",
                     help="shard node batches over all visible devices "
-                         "(not ported yet: raises)")
+                         "(an even count of cards raises for a problem "
+                         "of more than one SDP block)")
     ap.add_argument("--warmstart", action="store_true",
                     help="warmstart node solves from the parent solution "
                          "(relaxing/SDP/warmstart)")

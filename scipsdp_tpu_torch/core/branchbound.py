@@ -45,9 +45,12 @@ with no fall-back to the CPU.  When the problem fits its feature set
 ``bb.turbo="on"`` at once on any device; ``"auto"`` at once on the card
 and, on the CPU, by handing the host loop's frontier over after three
 batches once it holds 2B nodes; the host loop takes over when turbo bails.
-The device mesh and the multi-host sync hook raise
-``NotImplementedError``, so a setting never silently changes the
-algorithm.
+
+``use_mesh`` shards every batched solve over a device mesh
+(``parallel/mesh.py``) built from the solver's device: its CUDA cards, or
+``mesh_devices`` CPU entries on the CPU; one card means no mesh.
+``sync_hook`` runs the loop in lockstep with other processes
+(``parallel/multihost.py``).
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import time
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from scipsdp_tpu_torch.core import probing
 from scipsdp_tpu_torch.core import rank1 as r1
@@ -77,6 +81,7 @@ from scipsdp_tpu_torch.native.frontier import FrontierStore
 from scipsdp_tpu_torch.ops.cmir import cmir_cut
 from scipsdp_tpu_torch.ops.cuts import (multiple_sparse_cuts,
                                         separate_eigenvector_cuts)
+from scipsdp_tpu_torch.parallel.mesh import make_mesh
 from scipsdp_tpu_torch.utils.config import Settings
 from scipsdp_tpu_torch.utils.status import SolveStatus, SolverResultStatus
 
@@ -175,17 +180,6 @@ class _Node:
         #                           pin all 1-fixed binaries
 
 
-def _unported_options(settings: Settings, sync_hook=None) -> List[str]:
-    """The settings this loop does not run, each with the ROADMAP item that
-    ports it; ``solve_misdp`` raises ``NotImplementedError`` naming them."""
-    out = []
-    if settings.use_mesh:
-        out.append("use_mesh (device mesh, Queue 1 item 8)")
-    if sync_hook is not None:
-        out.append("sync_hook (multi-host sync, Queue 1 item 8)")
-    return out
-
-
 def _apply_indicator_propagation(prob: MISDP, lb: np.ndarray, ub: np.ndarray):
     """binvar fixed to 1 => slack forced to 0 (indicator semantics)."""
     for link in prob.indicators:
@@ -236,6 +230,19 @@ class _Solver:
         prob = presolve_problem(prob, settings)
         self.prob = prob
         self.settings = settings
+        mesh = None
+        if settings.use_mesh:
+            # the solver's device decides: all its CUDA cards (or
+            # mesh_devices of them), or mesh_devices CPU entries
+            dev = torch.device("cuda" if device is None else device)
+            ndev = settings.mesh_devices or (
+                torch.cuda.device_count() if dev.type == "cuda" else 1)
+            if ndev > 1:
+                axes = (("nodes", "blocks")
+                        if ndev % 2 == 0 and len(prob.blocks) > 1
+                        else ("nodes",))
+                mesh = make_mesh(ndev, axes, device=dev)
+        self.mesh = mesh
         self.dense: DenseSDPData = densify(prob)
         self.m = prob.nvars
         self.lp_mode = settings.solve_sdps == 0
@@ -243,7 +250,8 @@ class _Solver:
         # full data: the SDP relaxations, and in LP mode separation and
         # feasibility checks
         self.full_iface = SDPInterface(self.dense, settings,
-                                       indicator_pairs=pairs, device=device)
+                                       indicator_pairs=pairs, mesh=mesh,
+                                       device=device)
         self.iface = self.full_iface
         if self.lp_mode:
             # LP relaxation data: same rows/bounds, no SDP blocks, solved
@@ -253,8 +261,8 @@ class _Solver:
                       ub=prob.ub, integral=prob.integral, blocks=[],
                       lp=prob.lp, indicators=prob.indicators,
                       name=prob.name + "_lp"))
-            self.iface = SDPInterface(lp_dense, settings, lp_host=True,
-                                      device=device)
+            self.iface = SDPInterface(lp_dense, settings, mesh=mesh,
+                                      lp_host=True, device=device)
         self.pool: List[Tuple[np.ndarray, float]] = []  # global cuts
         self._pool_keys = set()
         # conflict constraints (generateConflictCons, relax_sdp.c:1424):
@@ -668,14 +676,13 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
     ``device``: where the relaxations are solved; ``None`` means the CUDA
     card and raises without one, ``"cpu"`` solves on the CPU.
 
-    ``sync_hook`` (multi-host coordination) and the settings the module
-    docstring names as not ported raise ``NotImplementedError`` before any
-    work, each message naming its ROADMAP item."""
+    ``sync_hook``: multi-host coordination callback (parallel/multihost's
+    DistributedSync).  Called once per loop iteration IN LOCKSTEP across
+    hosts with a SyncCtx; may adopt a remote incumbent value, donate or
+    receive frontier nodes, and reports global termination.  While the
+    hook is set the loop keeps spinning (syncing) even with an empty
+    local frontier until every host is out of work."""
     settings = settings or Settings()
-    missing = _unported_options(settings, sync_hook)
-    if missing:
-        raise NotImplementedError(
-            "solve_misdp: not ported yet: " + "; ".join(missing))
     bb = settings.bb
     feastol = bb.feastol
     # DIMACS-scaled check tolerance (usedimacsfeastol, cons_sdp.c:703-710):
@@ -687,6 +694,12 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
 
     m_user = prob.nvars   # report solutions in the user's variable space
     sol = _Solver(prob, settings, device=device)
+    if sol.mesh is not None:
+        # the node-batch axis must divide the mesh's "nodes" axis
+        nodes_ax = sol.mesh.shape["nodes"]
+        if bb.batch_size % nodes_ax:
+            bb = dataclasses.replace(
+                bb, batch_size=_round_up(bb.batch_size, nodes_ax))
     prob = sol.prob       # presolve may lift (quad upgrade) or shrink
     m = prob.nvars        # (fix_and_aggregate) the problem
 
@@ -721,7 +734,10 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
             prob, root_lb, root_ub)
         root_lb, root_ub, root_conflict = tighten_bounds(
             prob, root_lb, root_ub)
-    if root_conflict:
+    if root_conflict and sync_hook is None:
+        # with a sync hook the host must keep participating in the
+        # lockstep protocol (it may also receive stolen work), so it
+        # falls through to the loop with an empty frontier instead
         stats.wall_time = time.time() - t0
         return BBResult(SolveStatus.INFEASIBLE, None, None,
                         prob.external_objval(np.inf), 0.0, stats)
@@ -735,7 +751,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     sol.dense, yv, feastol) is None))
 
     # optional root inner-approximation LP heuristic (heur_sdpinnerlp.c)
-    if bb.heuristic_innerlp:
+    if bb.heuristic_innerlp and not root_conflict:
         y_in, ok_in = probing.inner_lp_point(prob, settings,
                                              device=sol.full_iface.device)
         if ok_in and y_in is not None:
@@ -751,14 +767,15 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
     # one-shot trigger of SCIPrelaxSdpComputeAnalyticCenters); the host
     # loop's solves start from their convex combinations, turbo's do not,
     # as in the JAX package
-    if bb.warmstart and bb.warmstartiptype == 2 and not sol.lp_mode:
+    if (bb.warmstart and bb.warmstartiptype == 2 and not sol.lp_mode
+            and not root_conflict):
         ac_y, ac_ok, ac_X = probing.analytic_center(
             sol.iface, root_lb[None, :], root_ub[None, :], with_X=True)
         if bool(ac_ok[0]):
             sol.iface.set_interior_point(ac_y[0], ac_X)
 
     # optional root OBBT (prop_sdpobbt.c)
-    if bb.obbt_at_root and not sol.lp_mode:
+    if bb.obbt_at_root and not sol.lp_mode and not root_conflict:
         targets = np.where(integral)[0]
         if targets.size:
             root_lb, root_ub, nt = probing.obbt_root(
@@ -770,7 +787,8 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
     # role; generators verified exactly — see core/symmetry.py)
     sym_group = None
     if (settings.use_symmetry
-            and getattr(settings, "symmetry_mode", "lexrows") == "orbital"):
+            and getattr(settings, "symmetry_mode", "lexrows") == "orbital"
+            and not root_conflict):
         from scipsdp_tpu_torch.core.symmetry import automorphism_group
         sym_group = automorphism_group(prob)
         if sym_group.capped:
@@ -806,9 +824,9 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
 
     if turbo_now:
         tres = _turbo.solve_turbo(
-            sol.dense, prob, settings, root_lb, root_ub, incumbent_val,
-            incumbent_y, data=sol.iface.data,
-            rounds_per_dispatch=bb.turbo_rounds)
+            sol.dense, prob, dataclasses.replace(settings, bb=bb), root_lb,
+            root_ub, incumbent_val, incumbent_y, data=sol.iface.data,
+            rounds_per_dispatch=bb.turbo_rounds, mesh=sol.mesh)
         if tres is not None:
             add_turbo_stats(tres)
             stats.wall_time = time.time() - t0
@@ -857,7 +875,8 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
             _push_node(_Node(nlb, nub, nbound, ndepth, b1=None), nbound)
         if not len(frontier) and incumbent_y is None:
             resume = False
-    if not len(frontier) and (not resume or incumbent_y is None):
+    if (not len(frontier) and (not resume or incumbent_y is None)
+            and not root_conflict):
         _push_node(_Node(root_lb, root_ub, -np.inf, 0), -np.inf)
 
     unbounded = False
@@ -867,12 +886,74 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
     hit_limit: Optional[SolveStatus] = None
     turbo_open_bound = np.inf   # open bound of a limit-hit turbo handoff
 
+    class _SyncCtx:
+        """What a multi-host sync hook may see and do at the barrier
+        (all frontier nodes are at rest when the hook runs)."""
+
+        stopping = False   # this host hit a local limit (set by the loop)
+
+        @property
+        def nvars(self):
+            return m   # internal variable-space dimension (node box width)
+
+        @property
+        def incumbent_val(self):
+            return incumbent_val
+
+        @property
+        def nopen(self):
+            return len(frontier)
+
+        @property
+        def best_open_bound(self):
+            return (frontier.best_bound() if len(frontier) else np.inf)
+
+        def adopt_incumbent(self, val: float) -> None:
+            """A remote incumbent VALUE (its y stays on the host that
+            found it): it prunes here from now on."""
+            nonlocal incumbent_val
+            if val < incumbent_val - 1e-12:
+                incumbent_val = val
+
+        def pop_for_donation(self, k: int):
+            """Up to k cut-free nodes as plain (lb, ub, bound, depth)
+            boxes; nodes carrying node-local cuts stay home (their cuts
+            are only locally derived)."""
+            out = []
+            keep = []
+            for (nlb, nub, prio, ndepth, side) in frontier.pop_upto(k):
+                if side[1]:
+                    keep.append((nlb, nub, prio, ndepth, side))
+                else:
+                    out.append((nlb, nub, side[0], ndepth))
+            for (nlb, nub, prio, ndepth, side) in keep:
+                frontier.push(nlb, nub, prio, ndepth, side=side)
+            stats.ndonated += len(out)
+            return out
+
+        def push_nodes(self, nodes) -> None:
+            for (nlb, nub, nbound, ndepth) in nodes:
+                _push_node(_Node(np.asarray(nlb), np.asarray(nub),
+                                 float(nbound), int(ndepth), b1=None),
+                           float(nbound))
+            stats.nstolen += len(nodes)
+
+    sync_ctx = _SyncCtx() if sync_hook is not None else None
+
     while True:
         if hit_limit is None and stats.nodes >= bb.node_limit:
             hit_limit = SolveStatus.NODE_LIMIT
         if hit_limit is None and time.time() - t0 > bb.time_limit:
             hit_limit = SolveStatus.TIME_LIMIT
-        if hit_limit is not None or not len(frontier):
+        if sync_hook is not None:
+            sync_ctx.stopping = hit_limit is not None
+            if sync_hook(sync_ctx):
+                break
+            if hit_limit is not None or not len(frontier):
+                # keep participating (a stopped host's nodes can still be
+                # stolen and drained by the others) until global done
+                continue
+        elif hit_limit is not None or not len(frontier):
             break
 
         # deferred turbo engagement (the CPU policy above): once the host
@@ -897,7 +978,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                     root_lb, root_ub, incumbent_val, incumbent_y,
                     data=sol.iface.data,
                     rounds_per_dispatch=bb.turbo_rounds,
-                    init_nodes=init_nodes)
+                    mesh=sol.mesh, init_nodes=init_nodes)
                 if tres is None:
                     for (nlb, nub, nprio, ndepth, side) in popped:
                         frontier.push(nlb, nub, nprio, ndepth, side=side)
@@ -933,6 +1014,8 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
                 batch.append(_Node(nlb, nub, nbound, ndepth, ncuts, nreq,
                                    nysol, nxsol, nws, ntier, nb1))
         if not batch:
+            if sync_hook is not None:
+                continue
             break
 
         # orbital fixing (prop_sdpsymmetry.c): in each orbit of the

@@ -29,7 +29,9 @@ presolve retires at once).  Between rungs the ladder is host numpy: each
 rung's outputs come to the host in ONE device-to-host transfer
 (:func:`to_host`), and its inputs go to the device in one host-to-device
 copy.  The interface runs on the card unless it is given
-``device="cpu"``; it never falls back to the CPU on its own.
+``device="cpu"``; it never falls back to the CPU on its own.  With a
+device mesh every rung is that batch solved over the mesh
+(``parallel/mesh.py``); the host side stays on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ import torch
 from scipsdp_tpu_torch.models.problem import INF, DenseSDPData
 from scipsdp_tpu_torch.ops.eigen import cholesky
 from scipsdp_tpu_torch.ops.ipm import IPMData, build_ipm_data, ipm_solve
+from scipsdp_tpu_torch.parallel.mesh import ShardedIPM
 from scipsdp_tpu_torch.utils.config import Settings, resolve_backend_autos
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
 
@@ -155,8 +158,9 @@ def solve_and_round(data: IPMData, ipms, feastol: float,
                     b, lb, ub, generator: torch.Generator, cuts=None,
                     warm_y=None, warm_mask=None, gaptol_vec=None,
                     warm_X=None, ip_point=None, use_frac: bool = True,
-                    use_rand: bool = True):
-    """One ``ipm_solve`` and the rounding heuristics on its solution
+                    use_rand: bool = True, solve=ipm_solve):
+    """One ``ipm_solve`` (``solve``: or a solve of its signature, such as
+    ``parallel/mesh.ShardedIPM``) and the rounding heuristics on its solution
     (heur_sdpfracround.c, heur_sdprand.c), on ``data``'s device: the
     fractional candidate rounds every integral coordinate, the randomized
     one rounds it up with probability equal to its fractional part (a
@@ -167,8 +171,8 @@ def solve_and_round(data: IPMData, ipms, feastol: float,
     heuristics.  Returns (SolveOutput, best rounded y (B, m), feasible
     (B,), objective (B,)), all on the device."""
     Gcut, hcut, cvalid = (None, None, None) if cuts is None else cuts
-    out = ipm_solve(data, b, lb, ub, Gcut, hcut, cvalid, warm_y, warm_mask,
-                    gaptol_vec, warm_X, ip_point, settings=ipms)
+    out = solve(data, b, lb, ub, Gcut, hcut, cvalid, warm_y, warm_mask,
+                gaptol_vec, warm_X, ip_point, settings=ipms)
     dev, f64 = data.device, torch.float64
     m = data.nvars
     lb = torch.as_tensor(lb, dtype=f64, device=dev)[:, :m]
@@ -219,7 +223,10 @@ class SDPInterface:
     Per-call inputs are only the per-node variable bounds (and optionally a
     per-node objective, cut rows and warm starts), matching how B&B node
     relaxations differ.  ``device=None`` means the CUDA card; without one
-    the constructor raises unless ``device="cpu"`` is given.
+    the constructor raises unless ``device="cpu"`` is given.  With a
+    ``mesh`` (``parallel/mesh.py``) the interface lives on the mesh's first
+    device and every rung's batch is solved sharded over the mesh
+    (``ShardedIPM``): the batch must be a multiple of its nodes axis.
     """
 
     _ip_point = None
@@ -228,8 +235,7 @@ class SDPInterface:
                  indicator_pairs=None, mesh=None, lp_host: bool = False,
                  device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "SDPInterface: mesh= (multi-device sharding) is not ported")
+            device = mesh.devices.flat[0]
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -254,6 +260,9 @@ class SDPInterface:
         # simplex (see _solve_batch_lp_host)
         self.lp_host = lp_host and len(dense.blocksizes) == 0
         self.data: IPMData = build_ipm_data(dense, self.device)
+        # every rung's solve: on the device, or sharded over the mesh
+        self._ipm = (ipm_solve if mesh is None
+                     else ShardedIPM(self.data, mesh))
         self.m = dense.nvars
         self._indicator_pairs = (
             np.asarray(indicator_pairs, dtype=np.int32).reshape(-1, 2)
@@ -322,7 +331,7 @@ class SDPInterface:
                           self.device)
         b, lb, ub, Gc, hc, cv, warm_y, warm_mask, gaptol, feastol_vec = \
             args[:10]
-        return ipm_solve(self.data, b, lb, ub, Gc, hc, cv, warm_y, warm_mask,
+        return self._ipm(self.data, b, lb, ub, Gc, hc, cv, warm_y, warm_mask,
                          gaptol, None if warm_X is None else tuple(args[10:]),
                          self._ip_point, feastol_vec,
                          settings=self.settings.ipm)
@@ -651,7 +660,7 @@ class SDPInterface:
                 None if Gc is None else (Gc, hc, cv), wyd, wmd, gtd,
                 None if wX is None else tuple(wXd),
                 self._ip_point, use_frac=bb.heuristic_fracround,
-                use_rand=bb.heuristic_rand))
+                use_rand=bb.heuristic_rand, solve=self._ipm))
         else:
             out = to_host(self._run(bmat, lbx, ubx, cuts, wy, wm,
                                     warm_X=wX))[0]

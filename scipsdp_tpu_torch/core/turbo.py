@@ -31,8 +31,12 @@ eviction ``clear_cache``; the relay-watchdog schedule of rounds a chunk
 (the production-shape start at one round and the wall-clock shrink and
 grow rules): here a chunk starts at ``min(8, rounds_per_dispatch)`` rounds
 and doubles after each chunk while it stays within ``rounds_per_dispatch``,
-which is what the JAX package does whenever its dispatches are quick.  A
-``mesh`` raises (ROADMAP Queue 1 item 8).
+which is what the JAX package does whenever its dispatches are quick.
+
+Over a device mesh (``parallel/mesh.py``) the rounds' relaxation solves
+are sharded over it; the frontier slab and ``psd_feasible`` stay on the
+mesh's first device, and the width is the configured batch from the start
+(no ramp), as in the JAX package.
 
 Reference behavior mirrored: calcRelax outcome rules (relax_sdp.c:4205-
 4346), fracround/randround heuristics (heur_sdpfracround.c, heur_sdprand.c),
@@ -42,6 +46,7 @@ best-first selection (scipsdpdefplugins.c:152-158), branching rules
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import List, NamedTuple, Optional
 
@@ -51,9 +56,12 @@ import torch
 from scipsdp_tpu_torch.models.problem import MISDP, DenseSDPData
 from scipsdp_tpu_torch.ops.ipm import (IPMData, _chol_probe, build_ipm_data,
                                        ipm_solve)
+from scipsdp_tpu_torch.parallel.mesh import ShardedIPM
 from scipsdp_tpu_torch.utils.config import (IPMSettings, Settings,
                                             resolve_backend_autos)
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
+
+_log = logging.getLogger(__name__)
 
 OPT = int(SolverResultStatus.OPTIMAL)
 PRE_OPT = int(SolverResultStatus.PRESOLVED_OPTIMAL)
@@ -160,9 +168,13 @@ def psd_feasible(data: IPMData, yc: torch.Tensor, chktol: float,
 
 def make_round(settings: Settings, integral: np.ndarray, B: int,
                ind_pairs: Optional[np.ndarray] = None,
-               check_feastol: Optional[float] = None, device="cpu"):
+               check_feastol: Optional[float] = None, device="cpu",
+               solve=ipm_solve):
     """Build the chunk function ``chunk_fn(data, st, gen, node_limit, k)``
-    over (IPMData, TurboState) at batch width ``B`` on ``device``.
+    over (IPMData, TurboState) at batch width ``B`` on ``device``.  The
+    direct, probe and penalty solves go through ``solve`` (``ipm_solve``,
+    or ``parallel/mesh.ShardedIPM`` over a mesh); the rest of a round
+    stays on ``device``.
 
     ``ind_pairs``: (K, 2) [binvar, slackvar] indicator links; vectorized
     propagation (binvar fixed 1 => slack <= 0), candidate/leaf indicator
@@ -229,12 +241,11 @@ def make_round(settings: Settings, integral: np.ndarray, B: int,
         bmat = data.b_base[None].expand(B, mp).clone()
 
         if warm_on:
-            out = ipm_solve(data, bmat, lbx, ubx,
-                            warm_y=torch.cat([st.fwarm[idx], zcol], dim=1),
-                            warm_mask=st.fwok[idx] & sel_live,
-                            settings=ipms)
+            out = solve(data, bmat, lbx, ubx,
+                        warm_y=torch.cat([st.fwarm[idx], zcol], dim=1),
+                        warm_mask=st.fwok[idx] & sel_live, settings=ipms)
         else:
-            out = ipm_solve(data, bmat, lbx, ubx, settings=ipms)
+            out = solve(data, bmat, lbx, ubx, settings=ipms)
         status = out.status
         y = out.y[:, :m]
         bound = out.dobj
@@ -252,7 +263,7 @@ def make_round(settings: Settings, integral: np.ndarray, B: int,
             # decided instances get a conflict box: presolve retires them
             lbq = torch.where(failed0[:, None], lbx, 1.0)
             ubq = torch.where(failed0[:, None], ubp, 0.0)
-            outp = ipm_solve(data, bprobe, lbq, ubq, settings=ipms)
+            outp = solve(data, bprobe, lbq, ubq, settings=ipms)
             margin = ipms.peninfeasadjust * max(ipms.feastol, ipms.gaptol)
             proved = failed0 & (outp.status == OPT) & (outp.r > margin)
             status = status.masked_fill(proved, INFEAS)
@@ -275,7 +286,7 @@ def make_round(settings: Settings, integral: np.ndarray, B: int,
             ubp[:, m] = 1e20
             lbq = torch.where(failed1[:, None], lbx, 1.0)
             ubq = torch.where(failed1[:, None], ubp, 0.0)
-            outp = ipm_solve(data, bpen, lbq, ubq, settings=ipms)
+            outp = solve(data, bpen, lbq, ubq, settings=ipms)
             has_pen = failed1 & (outp.status == OPT)
             feas_pen = has_pen & (outp.r <= feastol)
             status = status.masked_fill(feas_pen, OPT)
@@ -531,18 +542,19 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
                 ) -> Optional[TurboResult]:
     """Run the device-resident B&B; returns None on fallback conditions.
 
-    Runs on ``data``'s device when ``data`` is given; otherwise on
-    ``device``, where ``None`` means the CUDA card (raising without one,
-    never falling back to the CPU).
+    Runs on ``data``'s device when ``data`` is given; otherwise on the
+    ``mesh``'s first device or on ``device``, where ``None`` means the
+    CUDA card (raising without one, never falling back to the CPU).  With
+    a ``mesh`` the rounds' solves are sharded over it; a batch that its
+    nodes axis does not divide drops the mesh (logged).
 
     ``init_nodes``: optional list of (lb, ub, bound) open nodes to seed
     the frontier with INSTEAD of the root box — the deferred-engagement
     handoff from the host loop."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_turbo: a device mesh is not ported (Queue 1 item 8)")
     if data is not None:
         dev = data.device
+    elif mesh is not None:
+        dev = mesh.devices.flat[0]
     else:
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
@@ -557,6 +569,12 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
         return None   # frontier too large for the slab
     if data is None:
         data = build_ipm_data(dense, dev)
+    if mesh is not None and B % mesh.shape["nodes"]:
+        _log.warning("solve_turbo: batch %d is not a multiple of the mesh's "
+                     "nodes axis (%d): solving on one device", B,
+                     mesh.shape["nodes"])
+        mesh = None
+    solve = ipm_solve if mesh is None else ShardedIPM(data, mesh)
     ind_pairs = (np.asarray([(l.binvar, l.slackvar)
                              for l in prob.indicators], dtype=np.int32)
                  if prob.indicators else None)
@@ -566,9 +584,10 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
     # frontier is narrow, double the width once the live frontier reaches
     # 4x the current width (small trees stop paying for speculative nodes
     # a wide batch would expand; deep trees still reach the configured
-    # width).  The slab does not depend on the width
+    # width).  The slab does not depend on the width.  Over a mesh the
+    # width stays at B
     widths = [B]
-    if bb.turbo_adaptive_batch and B > 8:
+    if bb.turbo_adaptive_batch and mesh is None and B > 8:
         widths, w = [], 8
         while w < B:
             widths.append(w)
@@ -581,7 +600,7 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
 
     def chunk_at(width):
         return make_round(settings, dense.integral, width, ind_pairs,
-                          check_feastol=chk, device=dev)
+                          check_feastol=chk, device=dev, solve=solve)
 
     chunk = chunk_at(widths[wi])
 

@@ -38,6 +38,9 @@ buckets, each padded only to its bucket's maximum.
 The iteration loop is a Python loop: it reads ``all(done)`` on the host
 once per iteration (one device sync per iteration; in the float32 tiers
 the choice of tier for the next iteration comes back in the same read).
+The loop is a generator, :func:`ipm_steps`, that yields those flags, and
+:func:`lockstep` reads them: ``ipm_solve`` advances one generator, a mesh
+(``parallel/mesh.py``) one per shard of the batch, read together.
 Every float32 iteration runs its library matmuls in full float32,
 whatever the caller set: the solver saves the caller's TF32 / float32
 matmul precision settings (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -55,7 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import Generator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -170,6 +173,10 @@ class IPMData:
     nvars: int             # m (without penalty var)
     ndim_sdp: int          # total real SDP dimensions (for mu)
     block_of: Tuple[Tuple[int, int], ...]  # original block k -> (bucket, idx)
+    # a mesh's "blocks" axis splits a bucket into consecutive slices of its
+    # blocks (parallel/mesh.py): the bucket of the unsplit data each bucket
+    # is a slice of; empty when no bucket is split
+    bucket_of: Tuple[int, ...] = ()
 
     @property
     def nbuckets(self) -> int:
@@ -422,7 +429,7 @@ def _check_supported(settings: IPMSettings) -> None:
             "dtype='float64'), so there is nothing to hold a port against")
 
 
-def ipm_solve(
+def ipm_steps(
     data: IPMData,
     b,                    # (B, mp) objective incl. penalty coefficient
     lb,                   # (B, mp)
@@ -440,37 +447,16 @@ def ipm_solve(
     feastol_vec=None,     # (B,) per-instance CONVERGENCE feastol override
     *,
     settings: IPMSettings,
-) -> SolveOutput:
-    """Solve a batch of SDPs on ``data``'s device.  Array arguments may be
-    tensors or numpy arrays; they are moved to that device in float64.
-
-    ``settings.phase32``: "off" runs every iteration in float64; "on"
-    runs an iteration wholly in float32 while every active relative gap is
-    above ``phase32_switch``, "lite" the same above ``refine_switch`` with
-    the Schur solve polished by ``schur_refine`` float64 residual passes;
-    "refine" runs the JAX package's refine tier from the first iteration —
-    float32 factors, float64 assembly, ``schur_refine`` refinement passes —
-    and an iteration in float64 below ``refine_switch``.  In every float32
-    tier an iteration runs in float64 after a float32 NaN
-    (``nan32_policy="repair"``) or for an instance that stalled in the
-    tier.  ``use_pallas`` sends the float32 Cholesky factors, triangular
-    inverses and Schur Gram to the kernels of ``ops/kernels.py`` (their
-    plain versions on CPU tensors); float64 operands stay on the library.
-    The refine tier's exact contractions go through the ``ops/df32.py``
-    kernels unless ``use_df32="off"`` (their plain versions; either way on
-    CPU tensors).  With ``use_df32`` not "off", ``fused_direction`` "auto" or
-    "on" runs the tier's Newton direction through the three fused kernels
-    of ``ops/fused.py`` (plain versions on CPU tensors), "off" through the
-    separate contractions; outside the refine tier it is inert, as in JAX.
-
-    ``warm_y`` (with ``warm_mask``) projects the parent's dual point into
-    each child's box with a strict-interior margin, floors its slack on
-    the PSD cone and convex-combines it with an interior target (the
-    scaled identity, or ``ip_point``'s analytic centres);
-    ``warm_X`` does the same for the primal blocks (JAX ipm.py:523-600).
-    ``settings.preopt_gap > 0`` also returns the first iterate whose
-    relative gap fell below it (``y_pre``, ``X_pre``, ``has_pre``).
-    """
+) -> Generator[torch.Tensor, Tuple[bool, bool], SolveOutput]:
+    """:func:`ipm_solve` as a generator that :func:`lockstep` advances
+    one iteration at a time.  Before every iteration it
+    yields a 1-D bool tensor on ``data``'s device: the batch's done mask
+    reduced to one flag, and in a float32 tier the tier's choice for the
+    next iteration (``tier32``) after it.  Its caller sends back the global
+    ``(all_done, use32)``; the generator returns the SolveOutput when
+    ``all_done`` or at ``max_iters``.  Several generators over slices of
+    one batch, sent the conjunction of their flags, run the iterations
+    of one solve over the whole batch."""
     _check_supported(settings)
     dtype = torch.float64
     dev = data.device
@@ -552,8 +538,16 @@ def ipm_solve(
     # sdpisolver_sdpa.cpp lambdastar)
     normb_orig = (torch.amax(b[:, :data.nvars].abs(), dim=1) if data.nvars > 0
                   else torch.zeros((B,), dtype=dtype, device=dev))
-    normZ0 = bsum([torch.amax(torch.where(pad_outer[t], Z0[t], 0.0).abs(),
-                              dim=(1, 2, 3)) for t in bidx])
+    zmax = [torch.amax(torch.where(pad_outer[t], Z0[t], 0.0).abs(),
+                       dim=(1, 2, 3)) for t in bidx]
+    if data.bucket_of:
+        # the largest entry of each unsplit bucket, as without the split
+        whole = {}
+        for t, u in enumerate(data.bucket_of):
+            whole[u] = (zmax[t] if u not in whole
+                        else torch.maximum(whole[u], zmax[t]))
+        zmax = list(whole.values())
+    normZ0 = bsum(zmax)
     normh = torch.amax(torch.where(pre.rowmask, hall, 0.0).abs(), dim=1)
     scale = settings.init_point_scale * torch.clamp_min(
         torch.maximum(normb_orig, torch.maximum(normZ0, normh)), 1.0)
@@ -1393,13 +1387,11 @@ def ipm_solve(
     y_pre, X_pre = st0.y, st0.X
     has_pre = torch.zeros((B,), dtype=torch.bool, device=dev)
     while st.it < settings.max_iters:
-        # one host read per iteration: the batch's done mask, and in a
-        # float32 tier the choice of tier in the same transfer
-        if use_phase32:
-            all_done, use32 = torch.stack(
-                [st.done.all(), tier32(st, ev)]).tolist()
-        else:
-            all_done, use32 = bool(st.done.all()), False
+        # lockstep reads these once per iteration: the batch's done mask,
+        # and in a float32 tier the choice of tier in the same transfer
+        all_done, use32 = yield (
+            torch.stack([st.done.all(), tier32(st, ev)]) if use_phase32
+            else st.done.all().reshape(1))
         if all_done:
             break
         f64_iters += not use32
@@ -1455,3 +1447,81 @@ def ipm_solve(
         X_pre=X_pre if track_pre else None,
         has_pre=has_pre if track_pre else None,
     )
+
+
+def lockstep(steppers, combine):
+    """Advance :func:`ipm_steps` generators together.  Every iteration
+    ``combine`` reduces their flags to one tensor, read on the host ONCE
+    (the iteration's one host sync, whatever the number of steppers), and
+    each stepper is sent the global ``(all_done, use32)``.  The steppers
+    stop together (they share ``max_iters`` and the flags); returns their
+    SolveOutputs in order."""
+    msg = None
+    while True:
+        flags, outs = [], []
+        for s in steppers:
+            try:
+                flags.append(s.send(msg))
+            except StopIteration as stop:
+                outs.append(stop.value)
+        if outs:
+            if flags:
+                raise RuntimeError("lockstep: steppers stopped apart")
+            return outs
+        vals = combine(flags).tolist()         # host read: the flags
+        msg = (bool(vals[0]), len(vals) > 1 and bool(vals[1]))
+
+
+def ipm_solve(
+    data: IPMData,
+    b,                    # (B, mp) objective incl. penalty coefficient
+    lb,                   # (B, mp)
+    ub,                   # (B, mp)
+    Gcut=None,            # (B, q, mp) per-node cut rows  Gcut y >= hcut
+    hcut=None,            # (B, q)
+    cutvalid=None,        # (B, q) bool
+    warm_y=None,          # (B, mp) parent dual solution (warm start)
+    warm_mask=None,       # (B,) bool: rows with a valid warm_y
+    gaptol_vec=None,      # (B,) per-instance gap tolerance
+    warm_X=None,          # per-bucket (B, K_t, n, n) parent primal blocks
+    ip_point=None,        # (y_ip (mp,), per-bucket X_ip (K_t, n, n)):
+                          # root analytic centres, the warm start's
+                          # interior target instead of the scaled identity
+    feastol_vec=None,     # (B,) per-instance CONVERGENCE feastol override
+    *,
+    settings: IPMSettings,
+) -> SolveOutput:
+    """Solve a batch of SDPs on ``data``'s device.  Array arguments may be
+    tensors or numpy arrays; they are moved to that device in float64.
+
+    ``settings.phase32``: "off" runs every iteration in float64; "on"
+    runs an iteration wholly in float32 while every active relative gap is
+    above ``phase32_switch``, "lite" the same above ``refine_switch`` with
+    the Schur solve polished by ``schur_refine`` float64 residual passes;
+    "refine" runs the JAX package's refine tier from the first iteration —
+    float32 factors, float64 assembly, ``schur_refine`` refinement passes —
+    and an iteration in float64 below ``refine_switch``.  In every float32
+    tier an iteration runs in float64 after a float32 NaN
+    (``nan32_policy="repair"``) or for an instance that stalled in the
+    tier.  ``use_pallas`` sends the float32 Cholesky factors, triangular
+    inverses and Schur Gram to the kernels of ``ops/kernels.py`` (their
+    plain versions on CPU tensors); float64 operands stay on the library.
+    The refine tier's exact contractions go through the ``ops/df32.py``
+    kernels unless ``use_df32="off"`` (their plain versions; either way on
+    CPU tensors).  With ``use_df32`` not "off", ``fused_direction`` "auto" or
+    "on" runs the tier's Newton direction through the three fused kernels
+    of ``ops/fused.py`` (plain versions on CPU tensors), "off" through the
+    separate contractions; outside the refine tier it is inert, as in JAX.
+
+    ``warm_y`` (with ``warm_mask``) projects the parent's dual point into
+    each child's box with a strict-interior margin, floors its slack on
+    the PSD cone and convex-combines it with an interior target (the
+    scaled identity, or ``ip_point``'s analytic centres);
+    ``warm_X`` does the same for the primal blocks (JAX ipm.py:523-600).
+    ``settings.preopt_gap > 0`` also returns the first iterate whose
+    relative gap fell below it (``y_pre``, ``X_pre``, ``has_pre``).
+    """
+    return lockstep([ipm_steps(data, b, lb, ub, Gcut, hcut, cutvalid, warm_y,
+                               warm_mask, gaptol_vec, warm_X, ip_point,
+                               feastol_vec, settings=settings)],
+                    lambda flags: flags[0])[0]

@@ -19,9 +19,11 @@ against the JAX package's on the CPU.
   on an instance where the option moves its own counters against the
   same tree without it (``test_option_parity``); the root options leave
   turbo's engagement as JAX's.
-* The two paths that are not ported (the device mesh, the multi-host sync
-  hook) raise ``NotImplementedError``, and ``device=None`` means the
-  card.  ``bb.turbo="auto"`` on the CPU runs
+* The device mesh on one CPU device (no mesh) and a one-process
+  multi-host sync hook give JAX's trees (``tests/test_torch_parallel.py``
+  and ``tests/test_torch_multihost.py`` hold the mesh and the multi-process
+  runs), and ``device=None`` means the card.  ``bb.turbo="auto"`` on the
+  CPU runs
   the host loop first (``tests/test_torch_turbo_bb.py`` holds the
   device-resident tree and its engagement to JAX).
 """
@@ -36,9 +38,11 @@ from _torch_bbcases import (SOLVE, assert_same, obbt_prob,  # noqa: F401
                              torch_one_thread)
 from scipsdp_tpu.core.branchbound import solve_misdp as jax_solve_misdp
 from scipsdp_tpu.models import families as jfam
+from scipsdp_tpu.parallel import multihost as jmh
 from scipsdp_tpu.utils.config import (BBSettings, IPMSettings, Settings)
 from scipsdp_tpu_torch.core import branchbound as tbb
 from scipsdp_tpu_torch.interop import problem_from_jax, settings_from_jax
+from scipsdp_tpu_torch.parallel import multihost as tmh
 from scipsdp_tpu_torch.utils.status import SolveStatus
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
@@ -178,15 +182,24 @@ UNPORTED = {
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_paths_raise(case):
-    """Each path the port does not run yet raises, naming its ROADMAP
-    item, before any work is done."""
-    kw = dict(UNPORTED[case])
-    bb = BBSettings(**kw.pop("bb", {}))
-    s = settings_from_jax(Settings(bb=bb, **kw))
-    hook = (lambda ctx: True) if case == "sync_hook" else None
-    with pytest.raises(NotImplementedError, match="Queue 1 item"):
-        tbb.solve_misdp(problem_from_jax(SOLVE["conflict"][0]()), s,
-                        sync_hook=hook, device="cpu")
+    """The two paths that once raised run, counter for counter with JAX:
+    ``use_mesh`` on the CPU's one device builds no mesh, the tree JAX
+    grows without one; a one-process ``DistributedSync`` hook in both
+    packages keeps the loop in lockstep with itself, the same tree."""
+    build, batch = SOLVE["conflict"]
+    jp = build()
+    s = settings(batch)
+    hooks = ((jmh.DistributedSync(), tmh.DistributedSync())
+             if case == "sync_hook" else (None, None))
+    rj = jax_solve_misdp(jp, s, sync_hook=hooks[0])
+    rt = tbb.solve_misdp(problem_from_jax(jp), settings_from_jax(
+        dataclasses.replace(s, **UNPORTED[case])), sync_hook=hooks[1],
+        device="cpu")
+    assert rj.status == rj.status.OPTIMAL
+    assert_same_optimum(rj, rt)
+    assert counters(rt.stats) == counters(rj.stats)
+    if case == "sync_hook":
+        assert hooks[1].calls == hooks[0].calls > 0
 
 
 # the opt-in options of the probing module and LP mode: per option the

@@ -210,7 +210,8 @@ def _held(plan):
 
 # chip_smoke.py's FUSED_SHAPES (B, mp, F) and F that the cluster size does
 # not divide, odd and even
-@pytest.mark.parametrize("B,mp,F", [(32, 66, 4290), (8, 130, 16770),
+@pytest.mark.parametrize("B,mp,F", [(32, 66, 4290), (16, 66, 4290),
+                                    (8, 66, 4290), (8, 130, 16770),
                                     (32, 46, 101), (4, 9, 37), (8, 30, 420),
                                     (8, 40, 700), (4, 66, 4097),
                                     (3, 130, 4099), (1, 1, 1)])

@@ -26,6 +26,7 @@ from scipsdp_tpu_torch.core import feascheck as tfeas
 from scipsdp_tpu_torch.core import sdpi as tsdpi
 from scipsdp_tpu_torch.interop import ipm_data_from_numpy, settings_from_jax
 from scipsdp_tpu_torch.ops import onevar as tonevar
+from scipsdp_tpu_torch.parallel.mesh import make_mesh
 from scipsdp_tpu_torch.utils.status import SolverResultStatus as S
 
 INF = jprob.INF
@@ -387,13 +388,12 @@ def test_check_points():
 
 
 def test_unported_options_raise(monkeypatch):
-    """mesh= waits for the multi-device port; mixed_precision="on" needs
-    the dtype="float32" solve, which the JAX reference cannot run; with no
-    device the interface means the card and raises without one (no
-    fall-back to the CPU)."""
+    """mixed_precision="on" needs the dtype="float32" solve, which the JAX
+    reference cannot run; with no device the interface means the card and
+    raises without one (no fall-back to the CPU); with a mesh it lives on
+    the mesh's first device (tests/test_torch_parallel.py holds the
+    sharded ladder to the unsharded one)."""
     dense = port_dense(jprob.densify(_lp2()))
-    with pytest.raises(NotImplementedError):
-        tsdpi.SDPInterface(dense, device="cpu", mesh=object())
     with pytest.raises(NotImplementedError):
         tsdpi.SDPInterface(dense, settings_from_jax(Settings(
             ipm=IPMSettings(mixed_precision="on"))), device="cpu")
@@ -401,3 +401,5 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsdpi.SDPInterface(dense)
     assert tsdpi.SDPInterface(dense, device="cpu").device.type == "cpu"
+    iface = tsdpi.SDPInterface(dense, mesh=make_mesh(2, device="cpu"))
+    assert iface.device.type == "cpu" and iface.data.device.type == "cpu"

@@ -28,6 +28,7 @@ from scipsdp_tpu.utils.config import BBSettings, IPMSettings, Settings
 from scipsdp_tpu_torch.core import turbo as tturbo
 from scipsdp_tpu_torch.interop import problem_from_jax, settings_from_jax
 from scipsdp_tpu_torch.models.problem import densify as tdensify
+from scipsdp_tpu_torch.parallel.mesh import make_mesh
 from scipsdp_tpu_torch.utils.config import Settings as TorchSettings
 from scipsdp_tpu_torch.utils.config import BBSettings as TorchBBSettings
 from scipsdp_tpu_torch.utils.config import resolve_backend_autos
@@ -281,13 +282,20 @@ def test_mkp12_completes_without_bail_at_defaults():
 
 def test_device_none_means_the_card(monkeypatch):
     """No data and no device means the CUDA card: without one the solve
-    raises, it never falls back to the CPU; a mesh raises too."""
+    raises, it never falls back to the CPU.  With a mesh the solve runs
+    on the mesh's first device (here two CPU entries), the same tree as
+    on the CPU without it (B = 8: no width ramp on either side)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tp = problem_from_jax(cls12())
     dense = tdensify(tp)
     m = dense.nvars
-    args = (dense, tp, TorchSettings(), tp.lb[:m], tp.ub[:m], np.inf, None)
+    s = settings_from_jax(settings(8))
+    args = (dense, tp, s, tp.lb[:m], tp.ub[:m], np.inf, None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tturbo.solve_turbo(*args)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tturbo.solve_turbo(*args, mesh=object(), device="cpu")
+    want = tturbo.solve_turbo(*args, device="cpu")
+    got = tturbo.solve_turbo(*args, mesh=make_mesh(2, device="cpu"))
+    assert want is not None and got is not None
+    assert got.inc_val == pytest.approx(want.inc_val, rel=1e-9)
+    assert got._replace(inc_val=0.0, inc_y=None, dual_bound=0.0) == \
+        want._replace(inc_val=0.0, inc_y=None, dual_bound=0.0)
