@@ -208,8 +208,21 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    loop (``SDPInterface(mesh=...)``'s ladder) and turbo
    (``solve_turbo(mesh=...)``, width B), OPTIMAL at BB_OPTIMUM, feasible
    incumbents; nodes, rounds, wall, #1 beside the unsharded trees.  Then
-   the card as it is: ``use_mesh=True`` on one card builds no mesh, and
-   ``mesh_devices=2`` raises ValueError before any launch.
+   the blocks axis over distinct devices: truss_topology(128, 4, seed=1)
+   (one bucket of four 65 x 65 blocks, split 2 + 2) at B=8 through
+   ``sharded_solver`` on the mixed row ["cuda:0", "cpu"] beside the same
+   split on ["cuda:0", "cuda:0"], float64 (equal statuses and
+   iterations, dobj within 1e-9) and fused refine (equal statuses,
+   iterations within 3, dobj within 5e-6): one flag read an iteration,
+   the bytes moved between the devices an iteration and the host syncs
+   logged, the card's kernels launched for the card's half only (the CPU
+   half on their plain versions); a host-loop and a turbo tree on the
+   truss with the solver's mesh made the mixed row, under a node cap,
+   with the unsharded trees' incumbent objective, nodes and dual bound;
+   on two or more cards the row ["cuda:0", "cuda:1"] at B=32 (else a line
+   says it did not run).  Then the card as it is: ``use_mesh=True`` on
+   one card builds no mesh, and ``mesh_devices=2`` raises ValueError
+   before any launch.
 16. multihost path (``parallel/multihost.py``): two processes on the card
    join a gloo group and solve with ``solve_misdp_distributed`` under a
    deadline: tests/test_multihost.py's steal instance to -2.3 in both
@@ -260,7 +273,8 @@ from scipsdp_tpu_torch.core.presolve_sdp import presolve_problem
 from scipsdp_tpu_torch.core.sdpi import SDPInterface
 from scipsdp_tpu_torch.models import reader_sdpa
 from scipsdp_tpu_torch.models.families import (cardinality_least_squares,
-                                               min_k_partition)
+                                               min_k_partition,
+                                               truss_topology)
 from scipsdp_tpu_torch.models.io import read_problem
 from scipsdp_tpu_torch.models.problem import MISDP, densify
 from scipsdp_tpu_torch.models.writers import (transformed_for_write,
@@ -271,6 +285,7 @@ from scipsdp_tpu_torch.ops import df32, fused, kernels
 from scipsdp_tpu_torch.ops.cuts import separate_eigenvector_cuts
 from scipsdp_tpu_torch.ops import ipm as ipm_module
 from scipsdp_tpu_torch.ops.ipm import build_ipm_data, ipm_solve
+from scipsdp_tpu_torch.parallel import mesh as mesh_module
 from scipsdp_tpu_torch.parallel.mesh import make_mesh, sharded_solver
 from scipsdp_tpu_torch.utils.config import (BBSettings, IPMSettings,
                                             Settings, resolve_backend_autos)
@@ -363,28 +378,37 @@ PEAK_TF32_FLOPS = 495e12
 # enforcement); (16, 10) and (8, 10) x 65 the ladders of one shard of
 # cls_32 B=32 over a mesh of 2 and of 4, (32, 1) x 65 turbo's psd_feasible
 # at the mesh's fixed width 32, (2, 10) x 1 the ladders of the
-# multi-process steal instance (B = 2, one 1 x 1 block)
+# multi-process steal instance (B = 2, one 1 x 1 block); (8, 20) x 65 the
+# ladder of one half of the truss_128 bucket at B = 8 (2 blocks x 10
+# trials), (32, 20) the same at B = 32 on two cards, (8, 40) the unsplit
+# bucket's in the truss trees, (8, 4) turbo's psd_feasible there
 CHOL_SHAPES = [((3,), 5, 0), ((16,), 43, 0), ((130,), 17, 0), ((1,), 64, 0),
                ((384,), 65, 0), ((32, 10), 65, 0), ((320,), 97, 0),
                ((320,), 129, 0), ((8, 10), 129, 0), ((8, 2), 129, 4),
                ((14720,), 10, 0), ((4,), 300, 0), ((1, 10), 1, 0),
                ((1, 10), 65, 0), ((16, 10), 65, 0), ((8, 10), 65, 0),
-               ((32, 1), 65, 0), ((2, 10), 1, 0)]
+               ((32, 1), 65, 0), ((2, 10), 1, 0), ((8, 20), 65, 0),
+               ((32, 20), 65, 0), ((8, 40), 65, 0), ((8, 4), 65, 0)]
 CHOL_MAIN = ((32, 10), 65, 0)
 DF32_TOL = 1e-11
 # the refine tier's shapes per instance: (label, mp, K n^2, LP rows P, B,
 # K, n); cls_32 B=32 is the main path, B=16 and B=8 one shard of it over
-# a mesh of 2 and of 4
+# a mesh of 2 and of 4; truss_128 B=8 half one half of its bucket split
+# over a mesh row (the per-bucket products), truss_128 B=8 the whole
+# bucket (the W features gathered at home: F = 4 n^2 + 1)
 DF32_SHAPES = [("cls_32 B=32", 66, 4225, 65, 32, 1, 65),
                ("cls_32 B=16", 66, 4225, 65, 16, 1, 65),
                ("cls_32 B=8", 66, 4225, 65, 8, 1, 65),
+               ("truss_128 B=8 half", 129, 8450, 1, 8, 2, 65),
+               ("truss_128 B=8", 129, 16900, 1, 8, 4, 65),
                ("cls_64 B=8", 130, 16641, 129, 8, 1, 129),
                ("mkp_10 B=32", 46, 100, 1, 32, 1, 10)]
 DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
              "contract_short64": "cls_32 B=32 W^T v",
              "contract_long64": "cls_32 B=32 W u"}
 # the fused kernels' shapes: (label, B, K, n, mp, F = K n^2 + LP rows,
-# padded, fixed0); the first five are DF32_SHAPES', then
+# padded, fixed0); the first six are DF32_SHAPES' (truss_128 B=8 half:
+# the half bucket's K = 2, the Schur solve's F of the whole), then
 # tests/test_fused.py's inputs, then two short-F cases, then an odd F
 # (no cluster size cuts it into whole slices; 4-byte copies); a padded
 # case zeroes the last 3 rows and columns of its last block, a fixed0 case
@@ -392,6 +416,7 @@ DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
 FUSED_SHAPES = [("cls_32 B=32", 32, 1, 65, 66, 4290, False, False),
                 ("cls_32 B=16", 16, 1, 65, 66, 4290, False, False),
                 ("cls_32 B=8", 8, 1, 65, 66, 4290, False, False),
+                ("truss_128 B=8 half", 8, 2, 65, 129, 16901, False, False),
                 ("cls_64 B=8", 8, 1, 129, 130, 16770, False, False),
                 ("mkp_10 B=32", 32, 1, 10, 46, 101, True, False),
                 ("test_fused", 4, 2, 13, 9, 37, True, False),
@@ -2875,8 +2900,251 @@ def mesh_trees(card, spent: Launches, host_tree, turbo_tree) -> dict:
     return trees
 
 
+# the blocks axis over distinct devices (parallel/mesh.py): a split
+# bucket's halves on a mesh row of the card and the CPU.  torch raises on
+# any op that mixes a CUDA tensor with a CPU tensor of more than 0
+# dimensions, so a move the solve misses fails; the same split on a row of
+# two cuda:0 entries is the reference
+BLOCKS_TRUSS = (128, 4, 1)         # truss_topology(nbars, nloads, seed)
+BLOCKS_BATCH = 8
+BLOCKS_NODE_CAP = 2
+BLOCKS_TWO_CARD_BATCH = 32
+MIXED_ROW = ("cuda:0", "cpu")
+CARD_ROW = ("cuda:0", "cuda:0")
+BLOCKS_AXES = ("nodes", "blocks")
+# the kernels each route runs per bucket: launched for the card's half,
+# their plain versions for the CPU's (the rest run at home, on the card)
+BLOCKS_PER_BUCKET = {"f64": ("cholesky_lanes",),
+                     "refine_fused": ("cholesky_lanes", "bmm64",
+                                      "rhs_bucket", "recover_bucket")}
+
+
+def truss_boxes(prob, B: int, rng):
+    """Slot 0 is the root box; slots 1.. bound 1-3 bar areas by an
+    integer inside their box (a branching-down or -up child)."""
+    lb = np.tile(prob.lb, (B, 1))
+    ub = np.tile(prob.ub, (B, 1))
+    for s in range(1, B):
+        for j in rng.choice(prob.nvars, size=int(rng.integers(1, 4)),
+                            replace=False):
+            v = float(rng.integers(0, 3))
+            if rng.random() < 0.5:
+                ub[s, j] = v
+            else:
+                lb[s, j] = v
+    return lb, ub
+
+
+class MoveSpy:
+    """The moves between devices of a sharded solve inside a ``with``
+    block: each call of ``to_device`` (ops/ipm.py's inside the solve,
+    parallel/mesh.py's around it) whose tensor changes device, as (from,
+    to, bytes), and the number of moves made before each flag read."""
+
+    def __init__(self):
+        self.moves, self.reads = [], []
+
+    def __enter__(self):
+        self.saved = (ipm_module.to_device, mesh_module.to_device,
+                      mesh_module.lockstep)
+        move, lockstep = self.saved[0], self.saved[2]
+
+        def spy(x, d):
+            if isinstance(x, torch.Tensor) and x.device != torch.device(d):
+                self.moves.append((x.device.type, torch.device(d).type,
+                                   x.numel() * x.element_size()))
+            return move(x, d)
+
+        def counted(steppers, combine):
+            def read(flags):
+                self.reads.append(len(self.moves))
+                return combine(flags)
+            return lockstep(steppers, read)
+
+        ipm_module.to_device = mesh_module.to_device = spy
+        mesh_module.lockstep = counted
+        return self
+
+    def __exit__(self, *exc):
+        (ipm_module.to_device, mesh_module.to_device,
+         mesh_module.lockstep) = self.saved
+
+    def per_iteration(self) -> dict:
+        """Moves and bytes between the first flag read and the last, a
+        loop iteration, by direction."""
+        inside = self.moves[self.reads[0]:self.reads[-1]]
+        iters = max(len(self.reads) - 1, 1)
+        out = {}
+        for src, dst, nbytes in inside:
+            key = f"{src}_to_{dst}"
+            n, b = out.get(key, (0, 0))
+            out[key] = (n + 1, b + nbytes)
+        return {k: {"moves": n / iters, "bytes": b / iters}
+                for k, (n, b) in out.items()}
+
+
+class PlainSpy:
+    """Each kernel's plain version run by its wrapper on CPU tensors
+    inside a ``with`` block, counted (the solver also calls some plain
+    versions itself, as library routes: not counted)."""
+
+    def __init__(self):
+        self.calls = dict.fromkeys(KERNELS, 0)
+
+    def __enter__(self):
+        self.saved = {}
+        for name, (wrapper, _) in KERNELS.items():
+            module = sys.modules[wrapper.__module__]
+            orig = getattr(module, f"{name}_plain")
+            self.saved[name] = (module, orig)
+
+            def call(*a, name=name, orig=orig, **kw):
+                if sys._getframe(1).f_code.co_name == name:
+                    self.calls[name] += 1
+                return orig(*a, **kw)
+            setattr(module, f"{name}_plain", call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (module, orig) in self.saved.items():
+            setattr(module, f"{name}_plain", orig)
+
+
+def row_solve(data, req, settings, row, spent: Launches) -> tuple:
+    """One solve of ``req`` through ``sharded_solver`` on the mesh row
+    ``row`` (nodes 1, blocks 2) with MoveSpy, PlainSpy, the host syncs and
+    the launches: (output, wall, record)."""
+    solve = sharded_solver(data, settings, make_mesh(
+        2, BLOCKS_AXES, devices=list(row)))
+    before = counts()
+    with MoveSpy() as moves, PlainSpy() as plain, sync_sites() as sites:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = spent.run(lambda: solve(*req))
+        wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in counts().items() if v > before[k]}
+    read = f"ipm.py:{ipm_read_line()}"
+    return res, wall, {
+        "row": list(row), "iters": res.iters, "wall_s": wall,
+        "flag_reads": sites.count(read), "host_syncs": len(sites),
+        "host_syncs_per_iteration": len(sites) / max(res.iters, 1),
+        "sync_sites": sorted(collections.Counter(sites).items()),
+        "moved_per_iteration": moves.per_iteration(),
+        "moved_bytes_total": sum(m[2] for m in moves.moves),
+        "launches": launched,
+        "plain_calls_on_cpu": {k: v for k, v in plain.calls.items() if v}}
+
+
+def mixed_row_solves(card, routes, spent: Launches) -> dict:
+    """The truss at BLOCKS_BATCH through sharded_solver on MIXED_ROW and
+    on CARD_ROW, per route: float64 with equal statuses and iterations
+    and dobj within MESH_F64_BAR, the fused refine route with equal
+    statuses, iterations within MESH_REFINE_ITERS and dobj within
+    MESH_REFINE_BAR; on the mixed row one flag read an iteration (plus
+    the last), the route's per-bucket kernels launched for the card's half
+    and their plain versions run for the CPU's (no plain version on the
+    CPU of a kernel the card did not run), #1 at half the card row's
+    launches in float64.  Returns the walls."""
+    prob = truss_topology(*BLOCKS_TRUSS[:2], seed=BLOCKS_TRUSS[2])
+    data = build_ipm_data(densify(prob), torch.device("cuda", 0))
+    lb, ub = truss_boxes(prob, BLOCKS_BATCH, np.random.default_rng(3))
+    req = request(prob, lb, ub, "direct")
+    walls = {}
+    for route, s in routes.items():
+        ref, ref_wall, ref_rec = row_solve(data, req, s, CARD_ROW, spent)
+        out, wall, rec = row_solve(data, req, s, MIXED_ROW, spent)
+        label = f"blocks mixed {route}"
+        if route == "f64":
+            dev = agree(label, out, ref, s.gaptol, "the cuda:0 row",
+                        iters_tol=0, bar=MESH_F64_BAR)
+        else:
+            dev = agree(label, out, ref, s.gaptol, "the cuda:0 row",
+                        iters_tol=MESH_REFINE_ITERS, bar=MESH_REFINE_BAR)
+        if rec["flag_reads"] != out.iters + 1:
+            raise AssertionError(f"{label}: {rec['flag_reads']} flag reads "
+                                 f"in {out.iters} iterations")
+        halves = [k for k in BLOCKS_PER_BUCKET[route]
+                  if not (rec["launches"].get(k)
+                          and rec["plain_calls_on_cpu"].get(k))]
+        if halves or set(rec["plain_calls_on_cpu"]) - set(rec["launches"]):
+            raise AssertionError(f"{label}: kernels launched "
+                                 f"{rec['launches']}, plain versions on the "
+                                 f"CPU {rec['plain_calls_on_cpu']}")
+        if route == "f64" and 2 * rec["launches"]["cholesky_lanes"] != \
+                ref_rec["launches"]["cholesky_lanes"]:
+            raise AssertionError(f"{label}: #1 launched {rec['launches']} "
+                                 f"vs the cuda:0 row's "
+                                 f"{ref_rec['launches']}")
+        walls[f"mixed {route}"] = wall
+        walls[f"cuda:0 row {route}"] = ref_wall
+        log("blocks_solve", card=card, instance="truss_128", route=route,
+            B=BLOCKS_BATCH, statuses=collections.Counter(
+                out.status.tolist()), max_rel_dobj_vs_card_row=dev,
+            card_row_iters=ref.iters, mixed=rec, card_row=ref_rec)
+    if torch.cuda.device_count() >= 2:
+        lb, ub = truss_boxes(prob, BLOCKS_TWO_CARD_BATCH,
+                             np.random.default_rng(4))
+        req = request(prob, lb, ub, "direct")
+        s = routes["f64"]
+        ref, ref_wall, ref_rec = row_solve(data, req, s, CARD_ROW, spent)
+        out, wall, rec = row_solve(data, req, s, ("cuda:0", "cuda:1"), spent)
+        dev = agree("blocks two cards", out, ref, s.gaptol,
+                    "the cuda:0 row", iters_tol=0, bar=MESH_F64_BAR)
+        walls["two cards f64"] = wall
+        log("blocks_two_cards", card=card, B=BLOCKS_TWO_CARD_BATCH,
+            max_rel_dobj_vs_card_row=dev, two_cards=rec, card_row=ref_rec)
+    else:
+        log("blocks_two_cards", card=card, ran=False,
+            reason=f"{torch.cuda.device_count()} CUDA device: the row "
+                   f"['cuda:0', 'cuda:1'] did not run")
+    return walls
+
+
+def mixed_row_trees(card, spent: Launches) -> dict:
+    """The truss at BLOCKS_BATCH under BLOCKS_NODE_CAP through
+    ``solve_misdp(use_mesh=True, mesh_devices=2)`` with the solver's mesh
+    made MIXED_ROW, the host loop (turbo="off") and turbo ("on"), beside
+    the same settings without a mesh: the same status, incumbent
+    objective and nodes, dual bound within MESH_F64_BAR."""
+    prob = truss_topology(*BLOCKS_TRUSS[:2], seed=BLOCKS_TRUSS[2])
+    trees = {}
+    real = bb_module.make_mesh
+    bb_module.make_mesh = lambda n, axes, device=None: make_mesh(
+        2, axes, devices=list(MIXED_ROW))
+    try:
+        for engine in ("off", "on"):
+            s = bb_settings(batch_size=BLOCKS_BATCH,
+                            node_limit=BLOCKS_NODE_CAP, turbo=engine)
+            runs = {}
+            for label, um in (("mixed", True), ("unsharded", False)):
+                with MoveSpy() as moves:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = spent.run(lambda: solve_misdp(
+                        prob, dataclasses.replace(s, use_mesh=um,
+                                                  mesh_devices=2)))
+                    wall = time.perf_counter() - t0
+                runs[label] = {**bb_summary(res, wall),
+                               "moved_bytes": sum(m[2] for m in moves.moves)}
+            got, want = runs["mixed"], runs["unsharded"]
+            name = "host" if engine == "off" else "turbo"
+            db = abs(got["dual_bound"] - want["dual_bound"]) / (
+                1 + abs(want["dual_bound"]))
+            if (got["status"], got["objval"], got["nodes"]) != (
+                    want["status"], want["objval"], want["nodes"]) or \
+                    not db <= MESH_F64_BAR or not got["moved_bytes"]:
+                raise AssertionError(f"blocks tree {name}: {got} vs {want}")
+            trees[name] = runs
+    finally:
+        bb_module.make_mesh = real
+    log("blocks_trees", card=card, instance="truss_128", batch=BLOCKS_BATCH,
+        node_cap=BLOCKS_NODE_CAP, trees=trees)
+    return trees
+
+
 def mesh_phase(card, case, routes, host_tree, turbo_tree) -> dict:
-    """The mesh path: sharded_solves, mesh_trees, then the card as it is:
+    """The mesh path: sharded_solves, mesh_trees, mixed_row_solves,
+    mixed_row_trees, then the card as it is:
     ``solve_misdp(use_mesh=True)`` on one card builds no mesh (the tree
     at the optimum), and ``mesh_devices=2`` raises ValueError before any
     kernel launch.  Every launch counter set to 0 just before and the
@@ -2885,6 +3153,8 @@ def mesh_phase(card, case, routes, host_tree, turbo_tree) -> dict:
     spent = Launches()
     walls = sharded_solves(case, routes, spent)
     mesh_trees(card, spent, host_tree, turbo_tree)
+    walls.update(mixed_row_solves(card, routes, spent))
+    mixed_row_trees(card, spent)
     prob = cardinality_least_squares(*BB_INSTANCE[:3], seed=BB_INSTANCE[3])
     with CallSpy(bb_module, ("make_mesh",), timed=False) as spy:
         t0 = time.perf_counter()

@@ -52,8 +52,9 @@ def main(argv=None) -> int:
                     help="solve on the CPU instead of the CUDA card")
     ap.add_argument("--mesh", action="store_true",
                     help="shard node batches over all visible devices "
-                         "(an even count of cards raises for a problem "
-                         "of more than one SDP block)")
+                         "(with an even count of cards, a problem of more "
+                         "than one SDP block also splits its blocks "
+                         "over the cards)")
     ap.add_argument("--warmstart", action="store_true",
                     help="warmstart node solves from the parent solution "
                          "(relaxing/SDP/warmstart)")

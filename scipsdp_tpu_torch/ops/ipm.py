@@ -173,10 +173,13 @@ class IPMData:
     nvars: int             # m (without penalty var)
     ndim_sdp: int          # total real SDP dimensions (for mu)
     block_of: Tuple[Tuple[int, int], ...]  # original block k -> (bucket, idx)
-    # a mesh's "blocks" axis splits a bucket into consecutive slices of its
-    # blocks (parallel/mesh.py): the bucket of the unsplit data each bucket
-    # is a slice of; empty when no bucket is split
-    bucket_of: Tuple[int, ...] = ()
+    # buckets spread over several devices (a mesh row, parallel/mesh.py):
+    # ``home`` holds G, h, b_base and the batch's vectors, ``places[t]``
+    # bucket t's A, C and dimmask.  Devices as the mesh names them (its CPU
+    # entries cpu:0, cpu:1, ... are one CPU to torch).  None and () when
+    # everything is on G's device.
+    home: Optional[torch.device] = None
+    places: Tuple[torch.device, ...] = ()
 
     @property
     def nbuckets(self) -> int:
@@ -184,7 +187,12 @@ class IPMData:
 
     @property
     def device(self) -> torch.device:
-        return self.G.device
+        """The home device: the batch's vectors and the per-bucket sums."""
+        return self.G.device if self.home is None else self.home
+
+    def place(self, t: int) -> torch.device:
+        """The device of bucket t."""
+        return self.places[t] if self.places else self.device
 
     def to(self, device) -> "IPMData":
         """The same data with every tensor on ``device``."""
@@ -194,7 +202,48 @@ class IPMData:
             C=tuple(c.to(device) for c in self.C),
             dimmask=tuple(d.to(device) for d in self.dimmask),
             G=self.G.to(device), h=self.h.to(device),
-            b_base=self.b_base.to(device))
+            b_base=self.b_base.to(device), home=None, places=())
+
+
+def to_device(x, device: torch.device):
+    """The one cross-device move of a solve spread over several devices: a
+    tensor to ``device`` (itself when it is there already), or numpy as a
+    tensor there."""
+    if isinstance(x, torch.Tensor):
+        return x if x.device == device else x.to(device)
+    return torch.as_tensor(x, device=device)
+
+
+def _moved(xs, device: torch.device):
+    """``xs`` (tensors of one shape and type) on ``device``: one tensor in
+    one move, several stacked into one move."""
+    if len(xs) == 1:
+        return to_device(xs[0], device)
+    return list(to_device(torch.stack(xs), device).unbind(0))
+
+
+def _to_bucket(data: IPMData, t: int, *xs):
+    """Home tensors into bucket t's device (as they are when it is the
+    home): one tensor, or a list for several of one shape and type."""
+    if data.place(t) == data.device:
+        return xs[0] if len(xs) == 1 else list(xs)
+    return _moved(xs, data.place(t))
+
+
+def _to_home(data: IPMData, t: int, *xs):
+    """Bucket t's results to the home device (as they are when bucket t is
+    there): one tensor, or a list for several of one shape and type."""
+    if data.place(t) == data.device:
+        return xs[0] if len(xs) == 1 else list(xs)
+    return _moved(xs, data.device)
+
+
+def _bsum(vals):
+    """Sum a sequence of tensors in order."""
+    out = vals[0]
+    for v in vals[1:]:
+        out = out + v
+    return out
 
 
 def _bucketize(sizes, max_buckets: int = 4):
@@ -292,12 +341,13 @@ class PresolveOut(NamedTuple):
 
 
 def presolve(data: IPMData, Gall, hall, rowvalid, lb, ub, feastol, epsfix,
-             rounds: int) -> PresolveOut:
+             rounds: int, fixed_check: bool = True) -> PresolveOut:
     """Vectorized SDPI presolve (sdpi.c:3190-3275, prepareLPData:1131).
 
     Operates on the unified per-node row system ``Gall`` (B, P, mp) /
     ``hall`` (B, P): the problem's static LP rows broadcast over the batch
-    followed by per-node cut rows.
+    followed by per-node cut rows.  ``fixed_check=False`` leaves out the
+    eigenvalue check of all-fixed instances (``fixed_feasible`` all True).
     """
     B = lb.shape[0]
     Gnz = Gall != 0
@@ -344,10 +394,12 @@ def presolve(data: IPMData, Gall, hall, rowvalid, lb, ub, feastol, epsfix,
 
     # all-fixed feasibility by eigenvalue check (checkFixedFeasibilitySdp)
     fixed_feasible = torch.ones((B,), dtype=torch.bool, device=lb.device)
-    for t in range(data.nbuckets):
-        Zf = torch.einsum("kjab,xj->xkab", data.A[t], fixval) - data.C[t][None]
+    for t in range(data.nbuckets if fixed_check else 0):
+        Zf = (torch.einsum("kjab,xj->xkab", data.A[t],
+                           _to_bucket(data, t, fixval)) - data.C[t][None])
         lam = min_eigenvalue(Zf, data.dimmask[t][None, :, :])   # (B, K_t)
-        fixed_feasible = fixed_feasible & (lam >= -feastol).all(dim=1)
+        fixed_feasible = fixed_feasible & _to_home(
+            data, t, (lam >= -feastol).all(dim=1))
 
     return PresolveOut(
         lb=lb,
@@ -429,6 +481,91 @@ def _check_supported(settings: IPMSettings) -> None:
             "dtype='float64'), so there is nothing to hold a port against")
 
 
+def _start(data: IPMData, b, lb, ub, Gcut, hcut, cutvalid, warm_y,
+           warm_mask, settings: IPMSettings, fixed_check: bool = True):
+    """A solve's inputs on ``data``'s home device, its row system (the
+    static LP rows ++ the per-node cuts), presolve and initial dual point:
+    ``(b, Gall, hall, pre, y0, wm)``, ``wm`` the rows with a warm start
+    (None without ``warm_y``)."""
+    dev = data.device
+
+    def tens(x, dt=torch.float64):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    b, lb, ub = tens(b), tens(lb), tens(ub)
+    B = b.shape[0]
+    # unified per-node row system: static LP rows ++ per-node cuts
+    Gs = data.G[None].expand(B, -1, -1)
+    hs = data.h[None].expand(B, -1)
+    valids = torch.ones((B, data.G.shape[0]), dtype=torch.bool, device=dev)
+    if Gcut is not None:
+        Gall = torch.cat([Gs, tens(Gcut)], dim=1)
+        hall = torch.cat([hs, tens(hcut)], dim=1)
+        rowvalid = torch.cat([valids, tens(cutvalid, torch.bool)], dim=1)
+    else:
+        Gall, hall, rowvalid = Gs, hs, valids
+
+    pre = presolve(data, Gall, hall, rowvalid, lb, ub, settings.feastol,
+                   settings.epsilon, settings.presolve_rounds, fixed_check)
+
+    two = pre.lbmask & pre.ubmask
+    y0 = torch.where(two, 0.5 * (pre.lb + pre.ub), 0.0)
+    y0 = torch.where(pre.lbmask & ~pre.ubmask,
+                     torch.clamp_min(pre.lb + 1.0, 0.0), y0)
+    y0 = torch.where(pre.ubmask & ~pre.lbmask,
+                     torch.clamp_max(pre.ub - 1.0, 0.0), y0)
+    y0 = torch.where(pre.fix, pre.fixval, y0)
+    wm = None
+    if warm_y is not None:
+        # warm start (warmstartproject=2): the parent's point projected
+        # into the child's box with a strict-interior margin
+        wm = (torch.ones((B,), dtype=torch.bool, device=dev)
+              if warm_mask is None else tens(warm_mask, torch.bool))
+        margin = 0.05 * torch.where(two, pre.ub - pre.lb, 2.0)
+        yw = torch.clamp(tens(warm_y),
+                         torch.where(pre.lbmask, pre.lb + margin, -torch.inf),
+                         torch.where(pre.ubmask, pre.ub - margin, torch.inf))
+        y0 = torch.where(pre.fix, pre.fixval, torch.where(wm[:, None], yw, y0))
+    return b, Gall, hall, pre, y0, wm
+
+
+def _pad_masks(data: IPMData):
+    """Per bucket the real dimensions (1, K_t, n_t) and their outer
+    product (1, K_t, n_t, n_t), on the bucket's device."""
+    pad_diag = tuple(m[None, :, :] for m in data.dimmask)
+    return pad_diag, tuple(p[..., :, None] & p[..., None, :]
+                           for p in pad_diag)
+
+
+def _blockmap(data: IPMData, y):
+    """Z_t(y) = sum_j A_j y_j - A_0 per bucket, on the bucket's device (y
+    on the home device)."""
+    return tuple(torch.einsum("kjab,xj->xkab", data.A[t],
+                              _to_bucket(data, t, y)) - data.C[t][None]
+                 for t in range(data.nbuckets))
+
+
+def _norm_z0(data: IPMData, Z0, pad_outer):
+    """The initial point's normZ0: per instance the sum over buckets of
+    Z(y0)'s largest |entry| on the real dimensions."""
+    return _bsum([_to_home(data, t, torch.amax(
+        torch.where(pad_outer[t], Z0[t], 0.0).abs(), dim=(1, 2, 3)))
+        for t in range(data.nbuckets)])
+
+
+def start_norm(data: IPMData, b, lb, ub, Gcut=None, hcut=None,
+               cutvalid=None, warm_y=None, warm_mask=None, *,
+               settings: IPMSettings) -> torch.Tensor:
+    """The initial point's normZ0 (B,) on ``data``'s home device, as
+    :func:`ipm_steps` computes it.  A mesh that splits buckets computes it
+    from the unsplit data and passes it in as ``norm_z0``: a bucket's
+    largest entry is over all its blocks."""
+    _check_supported(settings)
+    y0 = _start(data, b, lb, ub, Gcut, hcut, cutvalid, warm_y, warm_mask,
+                settings, fixed_check=False)[4]
+    return _norm_z0(data, _blockmap(data, y0), _pad_masks(data)[1])
+
+
 def ipm_steps(
     data: IPMData,
     b,                    # (B, mp) objective incl. penalty coefficient
@@ -447,6 +584,7 @@ def ipm_steps(
     feastol_vec=None,     # (B,) per-instance CONVERGENCE feastol override
     *,
     settings: IPMSettings,
+    norm_z0=None,         # (B,) the initial point's normZ0 (start_norm)
 ) -> Generator[torch.Tensor, Tuple[bool, bool], SolveOutput]:
     """:func:`ipm_solve` as a generator that :func:`lockstep` advances
     one iteration at a time.  Before every iteration it
@@ -456,7 +594,13 @@ def ipm_steps(
     ``(all_done, use32)``; the generator returns the SolveOutput when
     ``all_done`` or at ``max_iters``.  Several generators over slices of
     one batch, sent the conjunction of their flags, run the iterations
-    of one solve over the whole batch."""
+    of one solve over the whole batch.
+
+    Buckets may live away from the home device (``IPMData.places``):
+    per-bucket partial sums, reductions and W features come home, where
+    they are combined in bucket order, and home vectors go into the
+    buckets, each through :func:`to_device`; ``warm_X`` and ``ip_point``'s
+    blocks come on their bucket's device.  On one device nothing moves."""
     _check_supported(settings)
     dtype = torch.float64
     dev = data.device
@@ -464,7 +608,8 @@ def ipm_steps(
     def tens(x, dt=dtype):
         return torch.as_tensor(x, dtype=dt, device=dev)
 
-    b, lb, ub = tens(b), tens(lb), tens(ub)
+    b, Gall, hall, pre, y0, wm = _start(data, b, lb, ub, Gcut, hcut,
+                                        cutvalid, warm_y, warm_mask, settings)
     B, mp = b.shape
     NB = data.nbuckets
     feastol = settings.feastol
@@ -472,32 +617,21 @@ def ipm_steps(
     ftv = feastol if feastol_vec is None else tens(feastol_vec)
     bidx = range(NB)
 
-    def bsum(vals):
-        """Sum a sequence of (B,) tensors."""
-        out = vals[0]
-        for v in vals[1:]:
-            out = out + v
-        return out
+    def into(t, *xs):
+        """Home tensors into bucket t (see _to_bucket)."""
+        return _to_bucket(data, t, *xs)
 
-    # unified per-node row system: static LP rows ++ per-node cuts
-    Gs = data.G[None].expand(B, -1, -1)
-    hs = data.h[None].expand(B, -1)
-    valids = torch.ones((B, data.G.shape[0]), dtype=torch.bool, device=dev)
-    if Gcut is not None:
-        Gall = torch.cat([Gs, tens(Gcut)], dim=1)
-        hall = torch.cat([hs, tens(hcut)], dim=1)
-        rowvalid = torch.cat([valids, tens(cutvalid, torch.bool)], dim=1)
-    else:
-        Gall, hall, rowvalid = Gs, hs, valids
+    def back(t, *xs):
+        """Bucket t's results home (see _to_home)."""
+        return _to_home(data, t, *xs)
 
-    pre = presolve(data, Gall, hall, rowvalid, lb, ub, feastol,
-                   settings.epsilon, settings.presolve_rounds)
+    def tensb(t, x):
+        """A per-bucket input as float64 on bucket t's device."""
+        return torch.as_tensor(x, dtype=dtype, device=data.place(t))
 
-    pad_diag = tuple(data.dimmask[t][None, :, :] for t in bidx)  # (1,K_t,n_t)
-    pad_outer = tuple(pad_diag[t][..., :, None] & pad_diag[t][..., None, :]
-                      for t in bidx)
-    eyen = tuple(torch.eye(data.A[t].shape[-1], dtype=dtype, device=dev)
-                 for t in bidx)
+    pad_diag, pad_outer = _pad_masks(data)
+    eyen = tuple(torch.eye(data.A[t].shape[-1], dtype=dtype,
+                           device=data.place(t)) for t in bidx)
     eye_act = tuple(eyen[t][None, None] * pad_diag[t][..., None]
                     * pad_diag[t][..., None, :] for t in bidx)
     eye_act32 = tuple(e.to(torch.float32) for e in eye_act)
@@ -507,54 +641,24 @@ def ipm_steps(
           + pre.ubmask.sum(dim=1)).to(dtype) + float(data.ndim_sdp)
     nu = torch.clamp_min(nu, 1.0)
 
-    def blockmap_y(y):
-        """Z_t(y) = sum_j A_j y_j - A_0 per bucket."""
-        return tuple(torch.einsum("kjab,xj->xkab", data.A[t], y)
-                     - data.C[t][None] for t in bidx)
-
     # ---- initial point ----------------------------------------------------
-    two = pre.lbmask & pre.ubmask
-    y0 = torch.where(two, 0.5 * (pre.lb + pre.ub), 0.0)
-    y0 = torch.where(pre.lbmask & ~pre.ubmask,
-                     torch.clamp_min(pre.lb + 1.0, 0.0), y0)
-    y0 = torch.where(pre.ubmask & ~pre.lbmask,
-                     torch.clamp_max(pre.ub - 1.0, 0.0), y0)
-    y0 = torch.where(pre.fix, pre.fixval, y0)
-    if warm_y is not None:
-        # warm start (warmstartproject=2): the parent's point projected
-        # into the child's box with a strict-interior margin
-        wm = (torch.ones((B,), dtype=torch.bool, device=dev)
-              if warm_mask is None else tens(warm_mask, torch.bool))
-        margin = 0.05 * torch.where(two, pre.ub - pre.lb, 2.0)
-        yw = torch.clamp(tens(warm_y),
-                         torch.where(pre.lbmask, pre.lb + margin, -torch.inf),
-                         torch.where(pre.ubmask, pre.ub - margin, torch.inf))
-        y0 = torch.where(pre.fix, pre.fixval, torch.where(wm[:, None], yw, y0))
-
-    Z0 = blockmap_y(y0)
+    Z0 = _blockmap(data, y0)
     normb = torch.amax(b.abs(), dim=1)
     # initial-point scale: exclude the penalty objective coefficient Gamma
     # (b[m]) — a large Gamma must not blow up X0/S0 (lambda* heuristic,
     # sdpisolver_sdpa.cpp lambdastar)
     normb_orig = (torch.amax(b[:, :data.nvars].abs(), dim=1) if data.nvars > 0
                   else torch.zeros((B,), dtype=dtype, device=dev))
-    zmax = [torch.amax(torch.where(pad_outer[t], Z0[t], 0.0).abs(),
-                       dim=(1, 2, 3)) for t in bidx]
-    if data.bucket_of:
-        # the largest entry of each unsplit bucket, as without the split
-        whole = {}
-        for t, u in enumerate(data.bucket_of):
-            whole[u] = (zmax[t] if u not in whole
-                        else torch.maximum(whole[u], zmax[t]))
-        zmax = list(whole.values())
-    normZ0 = bsum(zmax)
+    normZ0 = (_norm_z0(data, Z0, pad_outer) if norm_z0 is None
+              else tens(norm_z0))
     normh = torch.amax(torch.where(pre.rowmask, hall, 0.0).abs(), dim=1)
     scale = settings.init_point_scale * torch.clamp_min(
         torch.maximum(normb_orig, torch.maximum(normZ0, normh)), 1.0)
     xi = scale[:, None, None, None]
-    X0 = tuple(xi * eyen[t][None, None]
+    xis = [into(t, xi) for t in bidx]
+    X0 = tuple(xis[t] * eyen[t][None, None]
                * torch.ones((B, data.A[t].shape[0], 1, 1), dtype=dtype,
-                            device=dev) for t in bidx)
+                            device=data.place(t)) for t in bidx)
     S0 = X0
     if warm_y is not None:
         # the slack from the projected point (and the parent's primal),
@@ -562,13 +666,13 @@ def ipm_steps(
         # target (fillStartZ / fillStartX): the scaled identity, or the
         # analytic centres of ``ip_point``
         f = settings.warmstartipfactor
-        wmk = wm[:, None, None, None]
+        wmk = [into(t, wm[:, None, None, None]) for t in bidx]
 
         def psd_floor(t, Mt, floor_rel):
             """Project onto the PSD cone with an eigenvalue floor relative
             to the largest |eigenvalue|; the padding keeps the scaled
             identity."""
-            pad = eyen[t][None, None] * xi
+            pad = eyen[t][None, None] * xis[t]
             lam, V = torch.linalg.eigh(torch.where(pad_outer[t], Mt, pad))
             lfloor = floor_rel * torch.clamp_min(
                 lam.abs().amax(dim=-1, keepdim=True), 1.0)
@@ -579,18 +683,19 @@ def ipm_steps(
         if ip_point is not None:
             y_ip, X_ip = ip_point
             S_tgt = tuple(psd_floor(t, (torch.einsum(
-                "kjab,j->kab", data.A[t], tens(y_ip)) - data.C[t])[None]
-                .expand(Z0[t].shape), 1e-2) for t in bidx)
-            X_tgt = tuple(psd_floor(t, tens(X_ip[t])[None].expand(
+                "kjab,j->kab", data.A[t], into(t, tens(y_ip)))
+                - data.C[t])[None].expand(Z0[t].shape), 1e-2) for t in bidx)
+            X_tgt = tuple(psd_floor(t, tensb(t, X_ip[t])[None].expand(
                 X0[t].shape), 1e-2) for t in bidx)
         else:
             S_tgt = X_tgt = X0
         S0 = tuple(sym(torch.where(
-            wmk, (1.0 - f) * psd_floor(t, Z0[t], 1e-3) + f * S_tgt[t], S0[t]))
-            for t in bidx)
+            wmk[t], (1.0 - f) * psd_floor(t, Z0[t], 1e-3) + f * S_tgt[t],
+            S0[t])) for t in bidx)
         if warm_X is not None:
             X0 = tuple(sym(torch.where(
-                wmk, (1.0 - f) * psd_floor(t, sym(tens(warm_X[t])), 1e-3)
+                wmk[t], (1.0 - f) * psd_floor(t, sym(tensb(t, warm_X[t])),
+                                              1e-3)
                 + f * X_tgt[t], X0[t])) for t in bidx)
     sl0 = torch.where(pre.rowmask,
                       torch.maximum(torch.einsum("xpm,xm->xp", Gall, y0)
@@ -612,7 +717,7 @@ def ipm_steps(
         nan32=zeros_b, esc=zeros_b,
     )
 
-    cmax = torch.stack([data.C[t].abs().max() for t in bidx]).max()
+    cmax = torch.stack([back(t, data.C[t].abs().max()) for t in bidx]).max()
     datascale = 1.0 + torch.maximum(cmax, data.h.abs().max())
     free_outer = (~pre.fix)[:, :, None] & (~pre.fix)[:, None, :]
 
@@ -643,8 +748,9 @@ def ipm_steps(
                  and settings.fused_direction != "off")
 
     def comp_gap(st: IPMState):
-        gsdp = bsum([torch.where(pad_outer[t], st.X[t] * st.S[t], 0.0)
-                     .sum(dim=(1, 2, 3)) for t in bidx])
+        gsdp = _bsum([back(t, torch.where(pad_outer[t], st.X[t] * st.S[t],
+                                          0.0).sum(dim=(1, 2, 3)))
+                      for t in bidx])
         return (
             gsdp
             + torch.where(pre.rowmask, st.xl * st.sl, 0.0).sum(dim=1)
@@ -674,17 +780,19 @@ def ipm_steps(
             Yx = Yxs[t].to(f32p)
             Ys = Yss[t].to(f32p)
             Kt = Yx.shape[1]
-            eyep = torch.eye(Yx.shape[-1], dtype=f32p, device=dev)
+            eyep = torch.eye(Yx.shape[-1], dtype=f32p, device=Yx.device)
             # certify with a PSD margin: factor I(1-delta) + aY, so a trial
             # passes only when lambda_min(I + aY) > delta — robust to f32
             # rounding differences between Cholesky implementations
             eyem = (1.0 - 1e-5) * eyep
-            trials = [eyem + cp[k][:, None, None, None] * Yx
+            cands = into(t, *cp, *cd)
+            trials = [eyem + cands[k][:, None, None, None] * Yx
                       for k in range(nc)]
-            trials += [eyem + cd[k][:, None, None, None] * Ys
+            trials += [eyem + cands[nc + k][:, None, None, None] * Ys
                        for k in range(nc)]
             Lp = _chol_probe(torch.cat(trials, dim=1), settings)
-            nanb = torch.isnan(Lp).any(dim=-1).any(dim=-1)  # (B, 2*nc*Kt)
+            # (B, 2*nc*Kt), home
+            nanb = back(t, torch.isnan(Lp).any(dim=-1).any(dim=-1))
             for k in range(nc):
                 okx[k] = okx[k] & ~nanb[:, k * Kt:(k + 1) * Kt].any(dim=1)
                 off = (nc + k) * Kt
@@ -715,8 +823,10 @@ def ipm_steps(
         for t, Yb in enumerate(congruences(Lxinv, Lsinv, dX, dS, cast32)):
             Kt = dX[t].shape[1]
             stp = gersh_step_from_ymat(Yb)
-            gx.append(torch.amin(stp[:, :Kt], dim=1))
-            gs_.append(torch.amin(stp[:, Kt:], dim=1))
+            gxt, gst = back(t, torch.amin(stp[:, :Kt], dim=1),
+                            torch.amin(stp[:, Kt:], dim=1))
+            gx.append(gxt)
+            gs_.append(gst)
             Yxs.append(Yb[:, :Kt])
             Yss.append(Yb[:, Kt:])
         gp = torch.amin(torch.stack(gx), dim=0)
@@ -727,15 +837,15 @@ def ipm_steps(
         """Residuals + duality gap + per-instance convergence, computed once
         per iteration on the new state and carried into the next one."""
         yh = torch.where(pre.fix, pre.fixval, st.y)
-        Z = blockmap_y(yh)
+        Z = _blockmap(data, yh)
         Rp = tuple(torch.where(pad_outer[t], Z[t] - st.S[t], 0.0)
                    for t in bidx)
         Gy = torch.einsum("xpm,xm->xp", Gall, yh)
         rpl = torch.where(pre.rowmask, Gy - hall - st.sl, 0.0)
         rplb = torch.where(pre.lbmask, (yh - pre.lb) - st.slb, 0.0)
         rpub = torch.where(pre.ubmask, (pre.ub - yh) - st.sub, 0.0)
-        AstarX = bsum([torch.einsum("kjab,xkba->xj", data.A[t], st.X[t])
-                       for t in bidx])
+        AstarX = _bsum([back(t, torch.einsum("kjab,xkba->xj", data.A[t],
+                                             st.X[t])) for t in bidx])
         GTxl = torch.einsum("xpm,xp->xm", Gall, st.xl)
         rd = b - AstarX - GTxl - st.xlb + st.xub
         rd = torch.where(pre.fix, 0.0, rd)
@@ -744,8 +854,9 @@ def ipm_steps(
         # explicit primal (Lagrange-dual) objective of the reduced problem
         # with fixed variables folded into the constant data:
         #   pobj = <A_0eff, X> + h_eff.xl + l.xlb - u.xub + sum_fix b_j f_j
-        CX = bsum([torch.where(pad_outer[t], data.C[t][None] * st.X[t], 0.0)
-                   .sum(dim=(1, 2, 3)) for t in bidx])
+        CX = _bsum([back(t, torch.where(pad_outer[t],
+                                        data.C[t][None] * st.X[t], 0.0)
+                         .sum(dim=(1, 2, 3))) for t in bidx])
         hxl = torch.where(pre.rowmask, hall * st.xl, 0.0).sum(dim=1)
         lxlb = torch.where(pre.lbmask, pre.lb * st.xlb, 0.0).sum(dim=1)
         uxub = torch.where(pre.ubmask, pre.ub * st.xub, 0.0).sum(dim=1)
@@ -753,7 +864,8 @@ def ipm_steps(
                               0.0).sum(dim=1)
         pobj = CX + hxl + lxlb - uxub - fixcorr
         pinf = torch.amax(rd.abs(), dim=1) / (1.0 + normb)
-        dinf_sdp = torch.stack([torch.amax(Rp[t].abs(), dim=(1, 2, 3))
+        dinf_sdp = torch.stack([back(t, torch.amax(Rp[t].abs(),
+                                                   dim=(1, 2, 3)))
                                 for t in bidx])
         dinf = torch.maximum(
             torch.amax(dinf_sdp, dim=0),
@@ -782,8 +894,10 @@ def ipm_steps(
         for t, Yb in enumerate(congruences(Lxinv, Lsinv, dX, dS, cast32)):
             stp = step_fn(Yb)
             Kt = dX[t].shape[1]
-            apv.append(torch.amin(stp[:, :Kt], dim=1))
-            adv.append(torch.amin(stp[:, Kt:], dim=1))
+            apt, adt = back(t, torch.amin(stp[:, :Kt], dim=1),
+                            torch.amin(stp[:, Kt:], dim=1))
+            apv.append(apt)
+            adv.append(adt)
         return (torch.amin(torch.stack(apv), dim=0).to(wdt),
                 torch.amin(torch.stack(adv), dim=0).to(wdt))
 
@@ -874,10 +988,11 @@ def ipm_steps(
         # Mehrotra centering parameter
         apx = ap_a[:, None, None, None]
         adx = ad_a[:, None, None, None]
-        gap_sdp_a = bsum([torch.where(
-            pad_outer[t],
-            (X[t] + apx * dX_a[t]) * (S[t] + adx * dS_a[t]), 0.0)
-            .sum(dim=(1, 2, 3)) for t in bidx])
+        steps_a = [into(t, apx, adx) for t in bidx]
+        gap_sdp_a = _bsum([back(t, torch.where(
+            pad_outer[t], (X[t] + steps_a[t][0] * dX_a[t])
+            * (S[t] + steps_a[t][1] * dS_a[t]), 0.0).sum(dim=(1, 2, 3)))
+            for t in bidx])
         gap_a = (
             gap_sdp_a
             + torch.where(pre.rowmask,
@@ -898,7 +1013,7 @@ def ipm_steps(
         smu = (sigma * mu)[:, None, None, None]
         Rc_c = tuple(torch.where(
             pad_outer[t],
-            smu * eyea[t] - XS[t] - mm(dX_a[t], dS_a[t]),
+            into(t, smu) * eyea[t] - XS[t] - mm(dX_a[t], dS_a[t]),
             0.0) for t in bidx)
         smu_v = (sigma * mu)[:, None]
         rcl_c = torch.where(pre.rowmask,
@@ -928,10 +1043,11 @@ def ipm_steps(
 
             lo4 = (0.1 * tgt)[:, None, None, None]
             hi4 = (10.0 * tgt)[:, None, None, None]
+            four = [into(t, apt, adt, lo4, hi4) for t in bidx]
             Rc_g = tuple(torch.where(
                 pad_outer[t],
-                cor(mm(X[t] + apt * dX[t], S[t] + adt * dS[t]),
-                    lo4 * eyea[t], hi4 * eyea[t]),
+                cor(mm(X[t] + four[t][0] * dX[t], S[t] + four[t][1] * dS[t]),
+                    four[t][2] * eyea[t], four[t][3] * eyea[t]),
                 0.0) for t in bidx)
             lo, hi = (0.1 * tgt)[:, None], (10.0 * tgt)[:, None]
             rcl_g = torch.where(pre.rowmask, cor(
@@ -949,13 +1065,15 @@ def ipm_steps(
                 else x + g for x, g in zip(d, dg))
             ap2, ad2 = rule_steps(cand)
             acc = (ap2 + ad2) >= (ap + ad) + 0.05
+            accs = [into(t, acc) for t in bidx]
 
-            def pick(new, old):
-                return torch.where(acc.view((-1,) + (1,) * (new.dim() - 1)),
+            def pick(new, old, keep=acc):
+                return torch.where(keep.view((-1,) + (1,) * (new.dim() - 1)),
                                    new, old)
 
             d = tuple(
-                tuple(pick(a, b) for a, b in zip(x, y))
+                tuple(pick(a, b, accs[t])
+                      for t, (a, b) in enumerate(zip(x, y)))
                 if isinstance(x, tuple) else pick(x, y)
                 for x, y in zip(cand, d))
             ap = torch.where(acc, ap2, ap)
@@ -971,12 +1089,14 @@ def ipm_steps(
                 oks = torch.ones((B,), dtype=torch.bool, device=dev)
                 for t in bidx:
                     Kt = dX[t].shape[1]
-                    probe = torch.cat(
-                        [X[t] + ap[:, None, None, None] * dX[t],
-                         S[t] + ad[:, None, None, None] * dS[t]], dim=1)
+                    apt, adt = into(t, ap[:, None, None, None],
+                                    ad[:, None, None, None])
+                    probe = torch.cat([X[t] + apt * dX[t],
+                                       S[t] + adt * dS[t]], dim=1)
                     Lp = (cholesky(probe.to(torch.float32)) if refine
                           else _chol_probe(probe, settings))
-                    nan_half = torch.isnan(Lp).any(dim=-1).any(dim=-1)
+                    nan_half = back(t, torch.isnan(Lp).any(dim=-1)
+                                    .any(dim=-1))
                     okx = okx & ~nan_half[:, :Kt].any(dim=1)
                     oks = oks & ~nan_half[:, Kt:].any(dim=1)
                 ap = torch.where(okx, ap, 0.4 * ap)
@@ -1031,7 +1151,7 @@ def ipm_steps(
         # stacks into one feature axis and M is ONE batched matmul.
         wl = torch.where(pre.rowmask, xl / sl, 0.0)
         Wg = torch.sqrt(wl)[:, :, None] * Gd                   # (B, P, mp)
-        Wall = torch.cat([_wfeat_flat(Lx[t], Ad[t], Lsinv[t], B, mp)
+        Wall = torch.cat([back(t, _wfeat_flat(Lx[t], Ad[t], Lsinv[t], B, mp))
                           for t in bidx] + [Wg.transpose(1, 2)], dim=2)
         M = _schur_product(Wall, settings)
         wlb = torch.where(pre.lbmask, xlb / slb, 0.0)
@@ -1084,15 +1204,15 @@ def ipm_steps(
             PsiSinv = [_bmm(Rc[t] - _bmm(X[t], Rp[t]), Sinv[t]) for t in bidx]
             rhs = lp_rhs(
                 st, ev,
-                bsum([torch.einsum("kjab,xkba->xj", Ad[t], PsiSinv[t])
-                      for t in bidx]),
+                _bsum([back(t, torch.einsum("kjab,xkba->xj", Ad[t],
+                                            PsiSinv[t])) for t in bidx]),
                 lambda w: torch.einsum("xpm,xp->xm", Gd, w),
                 rcl, rclb, rcub)
             rhs = torch.where(pre.fix, 0.0, rhs)
             dy = solve_dy(rhs)
             dS = tuple(torch.where(
                 pad_outer[t],
-                torch.einsum("kjab,xj->xkab", Ad[t], dy) + Rp[t],
+                torch.einsum("kjab,xj->xkab", Ad[t], into(t, dy)) + Rp[t],
                 0.0) for t in bidx)
             dX = tuple(torch.where(pad_outer[t], sym(_bmm(
                 Rc[t] - _bmm(X[t], dS[t]), Sinv[t])), 0.0) for t in bidx)
@@ -1156,13 +1276,13 @@ def ipm_steps(
 
         def astar_f64(P):
             """sum_t einsum('kjab,xkba->xj', A_t, P_t)."""
-            return bsum([long64(A_flat[t],
-                                P[t].transpose(-1, -2).reshape(B, -1))
-                         for t in bidx])
+            return _bsum([back(t, long64(
+                A_flat[t], P[t].transpose(-1, -2).reshape(B, -1)))
+                for t in bidx])
 
         def aapply_f64(dy):
             """einsum('kjab,xj->xkab', A_t, dy) per bucket."""
-            return tuple(short64(A_flat[t], dy).reshape(
+            return tuple(short64(A_flat[t], into(t, dy)).reshape(
                 (B, data.A[t].shape[0]) + data.A[t].shape[2:]) for t in bidx)
 
         # W features + Schur Gram in float32.  W_j = Lx^T A_j Ls^{-T} with
@@ -1175,8 +1295,8 @@ def ipm_steps(
         wlb64 = torch.where(pre.lbmask, st.xlb / st.slb, 0.0)
         wub64 = torch.where(pre.ubmask, st.xub / st.sub, 0.0)
         Wg = torch.sqrt(wl64).to(f32)[:, :, None] * G32
-        Wall = torch.cat([wfeat(t) for t in bidx] + [Wg.transpose(1, 2)],
-                         dim=2)
+        Wall = torch.cat([back(t, wfeat(t)) for t in bidx]
+                         + [Wg.transpose(1, 2)], dim=2)
         M = _schur_product(Wall, settings)
         eye32 = eye_mp.to(f32)
         M = M + (wlb64 + wub64).to(f32)[:, :, None] * eye32[None]
@@ -1235,8 +1355,8 @@ def ipm_steps(
             recovery, plus ONE Schur solve with its refinement passes —
             the math of the non-fused direction below.  The recovery
             zeroes the padding of dS and dX itself."""
-            rhs_sdp = bsum([fused.rhs_bucket(data.A[t], Rc[t], XRp[t],
-                                             Sinv32[t]) for t in bidx])
+            rhs_sdp = _bsum([back(t, fused.rhs_bucket(
+                data.A[t], Rc[t], XRp[t], Sinv32[t])) for t in bidx])
             rhs = lp_rhs(st, ev, rhs_sdp, lambda w: long64(GallT, w),
                          rcl, rclb, rcub)
             dy = fused.schur_solve_fused(
@@ -1244,9 +1364,9 @@ def ipm_steps(
                 reg_b, pre.fix, nrefine)
             dS, dX = [], []
             for t in bidx:
-                dSt, dXt = fused.recover_bucket(data.A[t], dy, ev.Rp[t],
-                                                Rc[t], st.X[t], Sinv32[t],
-                                                pad_outer[t])
+                dSt, dXt = fused.recover_bucket(
+                    data.A[t], into(t, dy), ev.Rp[t], Rc[t], st.X[t],
+                    Sinv32[t], pad_outer[t])
                 dS.append(dSt)
                 dX.append(sym(dXt))
             dxl, dsl, dxlb, dslb, dxub, dsub = lp_recover(
@@ -1289,7 +1409,8 @@ def ipm_steps(
         # freeze finished instances; detect numerical failure (NaN)
         bad = torch.isnan(dy).any(dim=1) | torch.isnan(ap) | torch.isnan(ad)
         for t in bidx:
-            bad = bad | torch.isnan(dX[t]).any(dim=-1).any(dim=-1).any(dim=-1)
+            bad = bad | back(t, torch.isnan(dX[t]).any(dim=-1).any(dim=-1)
+                             .any(dim=-1))
         nan32 = st.nan32
         if use_phase32 and settings.nan32_policy != "fail":
             # a NaN from a float32 tier is a PRECISION failure, not a solve
@@ -1313,17 +1434,20 @@ def ipm_steps(
         a2x = a2[:, :, None, None]
         actx = act[:, None, None, None]
         actv = act[:, None]
+        steps = [(*into(t, a1x, a2x), into(t, actx)) for t in bidx]
 
-        def updm(old, d, a):
-            return torch.where(actx, old + a * d, old)
+        def updm(old, d, a, keep):
+            return torch.where(keep, old + a * d, old)
 
         def updv(old, d, a):
             return torch.where(actv, old + a * d, old)
 
         new = st._replace(
             y=updv(st.y, dy, a2),
-            X=tuple(updm(st.X[t], dX[t], a1x) for t in bidx),
-            S=tuple(updm(st.S[t], dS[t], a2x) for t in bidx),
+            X=tuple(updm(st.X[t], dX[t], steps[t][0], steps[t][2])
+                    for t in bidx),
+            S=tuple(updm(st.S[t], dS[t], steps[t][1], steps[t][2])
+                    for t in bidx),
             xl=updv(st.xl, dxl, a1),
             sl=updv(st.sl, dsl, a2),
             xlb=updv(st.xlb, dxlb, a1),
@@ -1400,8 +1524,8 @@ def ipm_steps(
         if track_pre:
             hit = ~has_pre & ~was_done & (ev.relgap <= settings.preopt_gap)
             y_pre = torch.where(hit[:, None], st.y, y_pre)
-            X_pre = tuple(torch.where(hit[:, None, None, None], st.X[t],
-                                      X_pre[t]) for t in bidx)
+            X_pre = tuple(torch.where(into(t, hit[:, None, None, None]),
+                                      st.X[t], X_pre[t]) for t in bidx)
             has_pre = has_pre | hit
 
     converged = st.converged | (ev.conv & ~pre.conflict & ~pre.allfixed)

@@ -6,23 +6,28 @@ bucket's SDP blocks over ``"blocks"``, and GSPMD runs the one program over
 the mesh.  Here the same plan is carried out by hand (:class:`ShardedIPM`):
 
 * ``"nodes"``: the batch is cut into one slice per row of the mesh, each
-  solved by its own ``ops/ipm.ipm_steps`` on that row's device, and
+  solved by its own ``ops/ipm.ipm_steps`` on that row's devices, and
   ``ops/ipm.lockstep`` runs them together, reading every slice's flags
   in ONE host read per iteration.  So the batch stops on one global
   ``all(done)`` and a float32 tier picks its tier from the whole batch,
   as under GSPMD, and the iteration counts are the unsharded solve's;
 * ``"blocks"``: a bucket whose block count the axis divides
   (:func:`data_sharding`) becomes that many buckets of consecutive
-  blocks; the solve already sums over buckets where JAX's psum falls.
-  Outputs come back in the unsplit layout, so no caller sees the slices.
-  A blocks axis over distinct devices raises: its per-bucket sums would
-  cross devices inside every iteration.
+  blocks, the j-th on the row's j-th device; an unsplit bucket, the LP
+  rows and the batch's vectors stay on the row's first (home) device.
+  ``ipm_steps`` brings each bucket's partial sums and W features home and
+  combines them there in bucket order, where JAX's psum falls, so the
+  split computes the same numbers on distinct devices as on repeated
+  ones.  The initial point's scale comes from the unsplit data
+  (``ops/ipm.start_norm``).  Outputs come back in the unsplit layout, so
+  no caller sees the slices.
 
-Inputs going out, flags and outputs coming back: every cross-device move
-goes through :func:`to_device`.  A mesh's devices may repeat (a virtual
-mesh on one card, or CPU entries in the tests); :func:`make_mesh` never
-falls back from the card to the CPU.  Not carried over: ``mesh_key`` and
-the jit caches it keyed.
+Inputs going out, sums coming home, flags and outputs coming back: every
+cross-device move goes through :func:`to_device`.  :func:`make_mesh` gives
+distinct entries (n cards, or cpu:0 ... cpu:{n-1}, which torch keeps on
+one CPU); an explicit device list may repeat (a virtual mesh on one card)
+or mix the card with the CPU.  It never falls back from the card to the
+CPU.  Not carried over: ``mesh_key`` and the jit caches it keyed.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from scipsdp_tpu_torch.ops.ipm import (IPMData, SolveOutput, ipm_steps,
-                                       lockstep)
+                                       lockstep, start_norm, to_device)
 from scipsdp_tpu_torch.utils.config import IPMSettings
 
 
@@ -57,8 +62,8 @@ def make_mesh(n_devices: Optional[int] = None,
               devices=None) -> Mesh:
     """A mesh over ``n_devices`` devices: the first n CUDA cards
     (``device`` None or a CUDA device; ``ValueError`` when there are fewer
-    than n), n CPU entries (``device="cpu"``), or the first n of an
-    explicit ``devices`` list, which may repeat.
+    than n), the n CPU entries cpu:0 ... cpu:{n-1} (``device="cpu"``), or
+    the first n of an explicit ``devices`` list, which may repeat.
 
     With one axis the whole mesh is the node (batch) axis.  With two axes
     ("nodes", "blocks") devices are split evenly, blocks getting at most 2.
@@ -73,7 +78,8 @@ def make_mesh(n_devices: Optional[int] = None,
                                  f" pass devices=[...] for a virtual mesh")
             devices = [torch.device("cuda", i) for i in range(n)]
         else:
-            devices = [kind] * (1 if n_devices is None else n_devices)
+            devices = [torch.device(kind.type, i) for i in
+                       range(1 if n_devices is None else n_devices)]
     else:
         devices = [_indexed(torch.device(d)) for d in devices]
         n = len(devices) if n_devices is None else n_devices
@@ -107,15 +113,6 @@ def data_sharding(mesh: Mesh, data: IPMData) -> Tuple[Optional[str], ...]:
                  else None for a in data.A)
 
 
-def to_device(x, device: torch.device):
-    """The one cross-device move of a sharded solve: a tensor to
-    ``device`` (itself when it is there already), or numpy as a tensor
-    there."""
-    if isinstance(x, torch.Tensor):
-        return x if x.device == device else x.to(device)
-    return torch.as_tensor(x, device=device)
-
-
 def _slices(K: int, k: int):
     """The k consecutive block ranges of a bucket of K blocks."""
     return [slice(j * K // k, (j + 1) * K // k) for j in range(k)]
@@ -131,47 +128,49 @@ class ShardedIPM:
 
     def __init__(self, data: IPMData, mesh: Mesh):
         nodes = mesh.shape["nodes"]
-        grid = mesh.devices.reshape(nodes, -1)
-        if any(d != row[0] for row in grid for d in row):
-            raise NotImplementedError(
-                "ShardedIPM: a blocks axis over distinct devices would move "
-                "each bucket's sums between devices inside every iteration "
-                "(ROADMAP Queue 1 item 8: it waits for a machine with two "
-                "cards)")
+        self.grid = mesh.devices.reshape(nodes, -1)
         self.data = data
-        self.devices = [row[0] for row in grid]
+        self.devices = [row[0] for row in self.grid]   # the rows' homes
         nb = mesh.shape.get("blocks", 1)
         self.split = tuple(nb if spec else 1
                            for spec in data_sharding(mesh, data))
+        # per bucket of the split data, its column of a mesh row
+        self.column = tuple(j for k in self.split for j in range(k))
         sub = self._split_data(data)
-        self.shards = [dataclasses.replace(
-            sub, A=tuple(to_device(a, d) for a in sub.A),
-            C=tuple(to_device(c, d) for c in sub.C),
-            dimmask=tuple(to_device(m, d) for m in sub.dimmask),
-            G=to_device(sub.G, d), h=to_device(sub.h, d),
-            b_base=to_device(sub.b_base, d)) for d in self.devices]
+        self.shards = [self._placed(sub, row) for row in self.grid]
+
+    def _placed(self, sub: IPMData, row) -> IPMData:
+        """The split data on one mesh row: bucket t on the row's device
+        ``column[t]``, the rest on its first."""
+        places = tuple(row[j] for j in self.column)
+        return dataclasses.replace(
+            sub, A=tuple(to_device(a, d) for a, d in zip(sub.A, places)),
+            C=tuple(to_device(c, d) for c, d in zip(sub.C, places)),
+            dimmask=tuple(to_device(m, d)
+                          for m, d in zip(sub.dimmask, places)),
+            G=to_device(sub.G, row[0]), h=to_device(sub.h, row[0]),
+            b_base=to_device(sub.b_base, row[0]), home=row[0],
+            places=places)
 
     def _split_data(self, data: IPMData) -> IPMData:
         """``data`` with each split bucket cut into consecutive block
         slices, adjacent in bucket order."""
         if all(k == 1 for k in self.split):
             return data
-        A, C, dm, bucket_of, first = [], [], [], [], []
+        A, C, dm, first = [], [], [], []
         for t, k in enumerate(self.split):
             first.append(len(A))
             for sl in _slices(data.A[t].shape[0], k):
                 A.append(data.A[t][sl])
                 C.append(data.C[t][sl])
                 dm.append(data.dimmask[t][sl])
-                bucket_of.append(t)
         block_of = []
         for t, slot in data.block_of:
             per = data.A[t].shape[0] // self.split[t]
             block_of.append((first[t] + slot // per, slot % per))
         return dataclasses.replace(data, A=tuple(A), C=tuple(C),
                                    dimmask=tuple(dm),
-                                   block_of=tuple(block_of),
-                                   bucket_of=tuple(bucket_of))
+                                   block_of=tuple(block_of))
 
     def _by_slice(self, xs, dim: int):
         """Per-bucket arrays (numpy or tensors) with the block axis at
@@ -202,25 +201,34 @@ class ShardedIPM:
             raise ValueError(f"ShardedIPM: a batch of {B} is not a multiple "
                              f"of the mesh's nodes axis ({nn})")
         r = B // nn
+        # a split bucket's largest initial entry is over all its blocks:
+        # the initial point's scale from the unsplit data
+        norm = None if all(k == 1 for k in self.split) else start_norm(
+            data, b, lb, ub, Gcut, hcut, cutvalid, warm_y, warm_mask,
+            settings=settings)
         wX = None if warm_X is None else self._by_slice(warm_X, 1)
+        ipX = None if ip_point is None else self._by_slice(ip_point[1], 0)
         steppers = []
-        for i, dev in enumerate(self.devices):
+        for i, row in enumerate(self.grid):
             rows = slice(i * r, (i + 1) * r)
+            places = self.shards[i].places
 
-            def part(x, rows=rows, dev=dev):
+            def part(x, rows=rows, dev=row[0]):
                 if x is None or np.ndim(x) == 0:
                     return x
                 return to_device(x[rows], dev)
 
-            ipp = None if ip_point is None else (
-                to_device(ip_point[0], dev),
-                [to_device(x, dev) for x in self._by_slice(ip_point[1], 0)])
+            ipp = None if ipX is None else (
+                to_device(ip_point[0], row[0]),
+                [to_device(x, d) for x, d in zip(ipX, places)])
             steppers.append(ipm_steps(
                 self.shards[i], part(b), part(lb), part(ub), part(Gcut),
                 part(hcut), part(cutvalid), part(warm_y), part(warm_mask),
                 part(gaptol_vec),
-                None if wX is None else [part(x) for x in wX], ipp,
-                part(feastol_vec), settings=settings))
+                None if wX is None else [part(x, dev=d)
+                                         for x, d in zip(wX, places)],
+                ipp, part(feastol_vec), settings=settings,
+                norm_z0=part(norm)))
         dev0 = self.devices[0]
         outs = lockstep(steppers, lambda flags: torch.stack(
             [to_device(f, dev0) for f in flags]).all(dim=0))

@@ -192,21 +192,24 @@ def test_one_flag_read_per_iteration(two_block, monkeypatch,
 
 def test_raises(monkeypatch):
     """make_mesh on too few cards raises naming the count, with no CPU
-    fall-back; a blocks axis over distinct devices raises; a batch the
-    nodes axis does not divide raises."""
+    fall-back; a blocks row over distinct devices runs; a batch the nodes
+    axis does not divide raises."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="have 1"):
         tmesh.make_mesh(2)
     with pytest.raises(ValueError, match="have 1"):
         tmesh.make_mesh(4, ("nodes", "blocks"), device="cuda")
     tdata = port_data(jipm.build_ipm_data(jdensify(two_block_prob())))
-    mixed = tmesh.make_mesh(axes=("nodes", "blocks"),
-                            devices=["cpu", "meta", "cpu", "meta"])
-    with pytest.raises(NotImplementedError, match="distinct devices"):
-        tmesh.ShardedIPM(tdata, mixed)
-    solve = tmesh.sharded_solver(tdata, TorchIPMSettings(**pinned("eigh")),
-                                 tmesh.make_mesh(3, device="cpu"))
+    row = tmesh.make_mesh(axes=("nodes", "blocks"),
+                          devices=["cpu:0", "cpu:1"])
     b, lb, ub = node_boxes(two_block_prob(), 4)
+    s = TorchIPMSettings(**pinned("eigh"))
+    out = tmesh.sharded_solver(tdata, s, row)(b, lb, ub)
+    assert tmesh.ShardedIPM(tdata, row).shards[0].places == tuple(
+        row.devices[0])
+    assert torch.equal(out.status, tipm.ipm_solve(tdata, b, lb, ub,
+                                                  settings=s).status)
+    solve = tmesh.sharded_solver(tdata, s, tmesh.make_mesh(3, device="cpu"))
     with pytest.raises(ValueError, match="multiple"):
         solve(b, lb, ub)
 
