@@ -32,7 +32,13 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    most 1e-11: max |kernel - plain| / max |plain|), ``bmm64`` also around
    its fragment edges (n = 7 ... 129, 1 and 33 matrices, float64 and
    float32 right operands; two launches bit for bit; the float32 operand
-   must reach the kernel without an upcast op); ``rhs_bucket``,
+   must reach the kernel without an upcast op), the contractions' static
+   paths (A(dy), A*(Psi)) also at cls_32 B=128 and at their tile edges
+   (every (G, J, F) of CONTRACT_EDGE_*, float64 and float32 M, two
+   launches bit for bit) and on two streams, and from two CUDA graphs,
+   at once (CONTRACT_STREAM_CASES, bit for bit the launch alone), each
+   static case's time against the float64 einsum in one line;
+   ``rhs_bucket``,
    ``schur_solve_fused`` and ``recover_bucket`` at the same three shapes,
    tests/test_fused.py's and an odd F with one instance's rows all fixed,
    against their plain versions and against
@@ -77,7 +83,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    (SDPI_ROUNDS), the ladder against direct ``ipm_solve``, cold against
    warm-started children (from the root's y and X: the same statuses,
    objvals within 2 * gaptol) and the rungs request; one profiled
-   solve_batch of each (device busy, launches, host syncs); and a small
+   solve_batch of each but the rungs request (device busy, launches,
+   host syncs); and a small
    CLS instance with the same kinds of boxes through the ladder on the
    card and on the CPU (equal statuses, objvals within 2 * gaptol).
    Then the host branch-and-bound loop (``core/branchbound.py::
@@ -395,14 +402,29 @@ DF32_TOL = 1e-11
 # K, n); cls_32 B=32 is the main path, B=16 and B=8 one shard of it over
 # a mesh of 2 and of 4; truss_128 B=8 half one half of its bucket split
 # over a mesh row (the per-bucket products), truss_128 B=8 the whole
-# bucket (the W features gathered at home: F = 4 n^2 + 1)
+# bucket (the W features gathered at home: F = 4 n^2 + 1); cls_32 B=128,
+# the width of the planned benchmark, only for the static contractions
+# A(dy) and A*(Psi) (DF32_STATIC_ONLY)
 DF32_SHAPES = [("cls_32 B=32", 66, 4225, 65, 32, 1, 65),
                ("cls_32 B=16", 66, 4225, 65, 16, 1, 65),
                ("cls_32 B=8", 66, 4225, 65, 8, 1, 65),
                ("truss_128 B=8 half", 129, 8450, 1, 8, 2, 65),
                ("truss_128 B=8", 129, 16900, 1, 8, 4, 65),
                ("cls_64 B=8", 130, 16641, 129, 8, 1, 129),
-               ("mkp_10 B=32", 46, 100, 1, 32, 1, 10)]
+               ("mkp_10 B=32", 46, 100, 1, 32, 1, 10),
+               ("cls_32 B=128", 66, 4225, 65, 128, 1, 65)]
+DF32_STATIC_ONLY = ("cls_32 B=128",)
+# the static contractions' tile edges (ops/df32.py::contract_plan:
+# 8-instance fragments, 16-row panels and slices, the short kernel's
+# staged pieces of 144 rows of j, the long one's F chunks), every (G, J,
+# F) of them, float64 and float32 M, checked and not timed
+CONTRACT_EDGE_G = (1, 3, 17, 33, 128)
+CONTRACT_EDGE_J = (1, 16, 17, 46, 130, 145)
+CONTRACT_EDGE_F = (1, 100, 4225, 16641)
+# the static contractions launched on two streams at once (and replayed
+# from two CUDA graphs at once): DF32_SHAPES labels, launches a stream
+CONTRACT_STREAM_CASES = ("cls_32 B=32", "cls_64 B=8")
+CONTRACT_STREAM_LAUNCHES = 20
 DF32_MAIN = {"bmm64": "cls_32 B=32 X Rp",
              "contract_short64": "cls_32 B=32 W^T v",
              "contract_long64": "cls_32 B=32 W u"}
@@ -479,6 +501,16 @@ def counts() -> dict:
 def reset_counts() -> None:
     for w, _ in KERNELS.values():
         w.launches = 0
+        if hasattr(w, "static_launches"):
+            w.static_launches = 0
+
+
+def static_counts() -> dict:
+    """The two contractions' launches with a static M (A(dy), A*(Psi)),
+    counted where they launch, beside ``counts()``, which takes in their
+    per-instance launches too (W^T v; W u, G dy, G^T w)."""
+    return {k: w.static_launches for k, (w, _) in KERNELS.items()
+            if hasattr(w, "static_launches")}
 
 
 def spd_stack(rng, N: int, n: int, s: float = 0) -> np.ndarray:
@@ -691,6 +723,13 @@ def df32_cases(device):
     cases = []
     for label, mp, F, P, B, K, n in DF32_SHAPES:
         blk = (B, K, n, n)
+        if label in DF32_STATIC_ONLY:
+            A_flat, dy = t(normal(mp, F)), t(normal(B, mp))
+            cases += [
+                ("contract_short64", f"{label} A(dy)", (A_flat, dy)),
+                ("contract_long64", f"{label} A*(Psi)",
+                 (A_flat, t(normal(B, F))))]
+            continue
         X = t(normal(*blk))
         cases.append(("bmm64", f"{label} X Rp", (X, t(normal(*blk)))))
         # (Rc - X Rp) S^-1 with the float32-valued S^-1
@@ -791,6 +830,88 @@ def bmm64_edge_phase(device) -> None:
         repeat_bit_for_bit=True)
 
 
+def contract_edge_phase(device) -> None:
+    """The static contractions at every (G, J, F) of CONTRACT_EDGE_G,
+    CONTRACT_EDGE_J and CONTRACT_EDGE_F, a float64 and a float32 M, held
+    to their plain versions (DF32_TOL, two launches bit for bit; no
+    timing)."""
+    rng = np.random.default_rng(5)
+    worst = {"contract_short64": 0.0, "contract_long64": 0.0}
+    for G in CONTRACT_EDGE_G:
+        for J in CONTRACT_EDGE_J:
+            for F in CONTRACT_EDGE_F:
+                M = torch.as_tensor(rng.standard_normal((J, F)), device=device)
+                vs = {"contract_short64": rng.standard_normal((G, J)),
+                      "contract_long64": rng.standard_normal((G, F))}
+                for name, v in vs.items():
+                    v = torch.as_tensor(v, device=device)
+                    for Mx in (M, M.float()):
+                        _, _, rel = df32_check(
+                            name, f"edge ({G}, {J}, {F}) "
+                            f"{str(Mx.dtype)[6:]} M", (Mx, v))
+                        worst[name] = max(worst[name], rel)
+    for name, rel in worst.items():
+        log("kernel_edges", name=name, path="static", G=CONTRACT_EDGE_G,
+            J=CONTRACT_EDGE_J, F=CONTRACT_EDGE_F, M=["float64", "float32"],
+            max_rel_err=rel, repeat_bit_for_bit=True)
+
+
+def contract_streams_check(device) -> None:
+    """The static contractions at CONTRACT_STREAM_CASES, each on two
+    streams at once with other inputs (CONTRACT_STREAM_LAUNCHES launches
+    a stream, in turns), then from two CUDA graphs of those launches
+    replayed on the two streams at once: every result bit for bit the
+    launch alone.  A launch keeps no state outside its arguments (the
+    long one's split-K sum waits on its cooperative launch's own
+    barrier), so launches that overlap cannot mix."""
+    rng = np.random.default_rng(6)
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for label, mp, knn, _, B, _, _ in DF32_SHAPES:
+        if label not in CONTRACT_STREAM_CASES:
+            continue
+        M = torch.as_tensor(rng.standard_normal((mp, knn)), device=device)
+        for name in ("contract_short64", "contract_long64"):
+            wrapper = KERNELS[name][0]
+            D = mp if name == "contract_short64" else knn
+            vs = [torch.as_tensor(rng.standard_normal((B, D)), device=device)
+                  for _ in streams]
+            want = [wrapper(M, v) for v in vs]
+            outs = ([], [])
+            for s in streams:
+                s.wait_stream(main)
+            for _ in range(CONTRACT_STREAM_LAUNCHES):
+                for s, v, out in zip(streams, vs, outs):
+                    with torch.cuda.stream(s):
+                        out.append(wrapper(M, v))
+            torch.cuda.synchronize()
+            graphs, gouts = [], ([], [])
+            for v, out in zip(vs, gouts):
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    for _ in range(CONTRACT_STREAM_LAUNCHES):
+                        out.append(wrapper(M, v))
+                graphs.append(g)
+            for s in streams:
+                s.wait_stream(main)
+            for s, g in zip(streams, graphs):
+                with torch.cuda.stream(s):
+                    g.replay()
+            torch.cuda.synchronize()
+            for mode, got in (("streams", outs), ("graphs", gouts)):
+                for w, out in zip(want, got):
+                    if not all(bool((o == w).all()) for o in out):
+                        raise AssertionError(f"{name} {label}: launches on "
+                                             f"two {mode} at once differ "
+                                             "from the launch alone")
+            log("contract_streams", name=name, shape=label,
+                plan=df32.contract_plan(
+                    "short" if name == "contract_short64" else "long", B, mp,
+                    knn)._asdict(),
+                launches_a_stream=CONTRACT_STREAM_LAUNCHES,
+                modes=["streams", "graphs"], bit_for_bit=True)
+
+
 def einsum64(name, args):
     """The one PyTorch call that computes a df32 contraction: a float64
     ``torch.einsum`` (the plain version's product) on the operands made
@@ -808,8 +929,10 @@ def df32_phase(device) -> dict:
     versions, ``bmm64`` against ``torch.matmul`` and the contractions
     against their float64 ``torch.einsum`` (einsum64); returns the
     main-path entry of each."""
-    out = {}
+    out, static = {}, {}
     bmm64_edge_phase(device)
+    contract_edge_phase(device)
+    contract_streams_check(device)
     for name, label, args in df32_cases(device):
         wrapper = KERNELS[name][0]
         got, err, rel = df32_check(name, label, args)
@@ -832,12 +955,19 @@ def df32_phase(device) -> dict:
             max_abs_err=err, max_rel_err=rel, ms=t, plain_ms=tp,
             eager_ms=te, plain_eager_ms=tpe, library_ms=tl[0] if lib else None,
             library_eager_ms=tle[0] if lib else None)
+        if name != "bmm64" and args[0].dim() == 2 and "test_df32" not in label:
+            static[label] = {"ms": t, "library_ms": tl[0],
+                             "of_library": t / tl[0],
+                             **kernel_bound(name, args, got)}
         if label == DF32_MAIN[name]:
             out[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": t,
                          "plain_ms": tp, "eager_ms": te,
                          "plain_eager_ms": tpe,
                          "library_ms": tl[0] if lib else None,
                          **kernel_bound(name, args, got)}
+    log("static_contractions", card=card_line(), cases=static,
+        at_or_below_library=all(c["ms"] <= c["library_ms"]
+                                for c in static.values()))
     return out
 
 
@@ -1537,8 +1667,10 @@ def sdpi_phase(case, settings, f64_out, device):
     both launch the probe kernel.  Then the main request against direct
     ipm_solve and warm-started children against cold ones (warm from the
     root's y and X: statuses equal, objvals within 2 * gaptol), in turns,
-    and one profiled solve_batch of each request.  Returns the launches
-    of the two requests' first solves."""
+    and one profiled call of each but the rungs request (its 124,728
+    launches took ~90 s of the script under the profiler; its wall is in
+    sdpi_timing).  Returns the launches of the two requests' first
+    solves."""
     label, dense, _, req, _ = case
     nfeat, k = 32, 8
     prob = cardinality_least_squares(nfeat, 2 * nfeat, k, seed=5)
@@ -1609,7 +1741,7 @@ def sdpi_phase(case, settings, f64_out, device):
         max_rel_objval_warm_vs_cold=float(wdev.max()),
         rounding_main=agree_main, rounding_rungs=agree_rungs,
         rung_per_slot=dict(zip(range(B), zip(kinds, slot_rungs))))
-    for key in ("ipm_solve", "ladder", "cold", "warm", "rungs"):
+    for key in ("ipm_solve", "ladder", "cold", "warm"):
         log("sdpi_profile", request=label, run=key,
             **device_profile(runs[key])[1])
     return launches
@@ -3395,6 +3527,7 @@ def refine_phase(cases, rset, f64_outs):
     tier's and the plain route's bounds."""
     launches, per_request, outs = drive(cases, rset,
                                         ["cholesky_lanes", *DF32])
+    static = static_counts()
     plain = dataclasses.replace(rset, use_df32="off")
     for (label, dense, data, req, direct), out, f64, n in zip(
             cases, outs, f64_outs, per_request):
@@ -3418,7 +3551,7 @@ def refine_phase(cases, rset, f64_outs):
             status_diff_vs_f64_tier=diff64, status_diff_vs_plain_route=diffp,
             max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_plain_route=devp,
             root_dobj=float(out.dobj[0]), root_dual_violation=viol)
-    log("refine_path", launches=launches)
+    log("refine_path", launches=launches, static_launches=static)
     return launches, outs
 
 
@@ -3432,6 +3565,7 @@ def fused_phase(cases, fset, f64_outs, refine_outs):
     count their FAILED slots; their OPTIMAL slots hold to both bounds."""
     launches, per_request, outs = drive(
         cases, fset, [*FUSED, "cholesky_lanes", "bmm64"])
+    static = static_counts()
     failed = int(SolverResultStatus.FAILED)
     for (label, dense, data, req, direct), out, f64, nonfused, n in zip(
             cases, outs, f64_outs, refine_outs, per_request):
@@ -3458,7 +3592,7 @@ def fused_phase(cases, fset, f64_outs, refine_outs):
             status_diff_vs_f64_tier=diff64, status_diff_vs_nonfused=diffr,
             max_rel_dobj_vs_f64_tier=dev64, max_rel_dobj_vs_nonfused=devr,
             root_dobj=float(out.dobj[0]), root_dual_violation=viol)
-    log("fused_path", launches=launches)
+    log("fused_path", launches=launches, static_launches=static)
     return launches
 
 

@@ -5,7 +5,9 @@ CUDA card: the tensor-core kernels ``bmm64`` (float64 DMMA) and
 and ``tril_inverse``, the panel-blocked factor-quality ``cholesky``, the
 fused Schur solve ``schur_solve_fused`` (a cluster an instance) and the
 fused direction's staged float64 tensor-core ``rhs_bucket`` and
-``recover_bucket``, and the fused ``A -> L^-1`` ``chol_inverse_lanes``.
+``recover_bucket``, the fused ``A -> L^-1`` ``chol_inverse_lanes``, and
+the static paths of the float64 contractions ``contract_short64`` and
+``contract_long64``.
 
     python3 profile_torch_kernels.py check [GROUP]     # build, ptxas, errors
     python3 profile_torch_kernels.py variants [GROUP]  # time design variants
@@ -14,12 +16,14 @@ fused direction's staged float64 tensor-core ``rhs_bucket`` and
     python3 profile_torch_kernels.py reference         # Schur plans, chaos
     python3 profile_torch_kernels.py phases cholinv [PARENT_CSRC]
     python3 profile_torch_kernels.py dissect cholinv [PARENT_CSRC]
+    python3 profile_torch_kernels.py phases contract [PARENT_CSRC]
 
 GROUP takes one group of kernels: ``mma`` the tensor-core kernels, ``tri``
 the two blocked triangular ones, ``chol`` the factor-quality Cholesky,
 ``schur`` the fused Schur solve, ``bucket`` rhs_bucket and recover_bucket,
-``cholinv`` chol_inverse_lanes (default all; ``phases`` without a group
-runs chip_smoke.py's df32 and float32 kernel phases).  PARENT_CSRC, the
+``cholinv`` chol_inverse_lanes, ``contract`` the two contractions
+(default all; ``phases`` without a group runs chip_smoke.py's df32 and
+float32 kernel phases).  PARENT_CSRC, the
 ``scipsdp_tpu_torch/csrc`` directory of another checkout (an unpacked
 ``git archive`` of the parent commit under ``build/``), adds that
 checkout's ``chol_inverse_lanes.cu``, built against its own headers and
@@ -67,6 +71,19 @@ and the library pair (cholesky_ex -> solve_triangular) at CHOLINV_TIMED;
 ``variants`` a cluster of two blocks a matrix (CHOLINV_CLUSTER), other
 block sizes and nb = 32; ``dissect`` cuts out the X update, the factor, the copies and the
 stores (CHOLINV_CUTS; the parent's factor or inverse with PARENT_CSRC).
+For ``contract``: ``check`` holds both kernels to their plain versions
+(chip_smoke.df32_check) at every df32-phase case, at chip_smoke.py's
+static tile edges (contract_edge_phase) and on two streams and from two
+graphs at once (contract_streams_check); ``variants`` times the static
+cases under other launch plans of ops/df32.py (panels, fragments a warp,
+groups, chunks) and copies of the short source with other loads in
+flight, beside the float64 einsum; ``dissect`` cuts out the loads,
+the short kernel's copies of v, the products, the stores or partials,
+the long one's grid barrier and chunk sum (CONTRACT_CUTS, in the source with
+contract_tile.cuh inlined); ``phases contract`` times every df32-phase
+contraction case (contract_times), with PARENT_CSRC that checkout's two
+sources in the same graphs, parent, change, change, parent, and the
+static cases also with the L2 cold.
 ``phases`` runs ``chip_smoke.py``'s build and its ``df32_phase`` and
 ``pallas_kernel_phase`` (every shape those time, a few minutes); ``phases
 tri``, ``phases chol``, ``phases schur`` and ``phases bucket`` only the
@@ -1272,6 +1289,228 @@ def bucket_dissect(device) -> None:
                    ms=dict(zip([*libs, "plain"], cs.graph_times(fns, args))))
 
 
+# the static contractions' timed cases: labels of chip_smoke.DF32_SHAPES
+CONTRACT = ("contract_short64", "contract_long64")
+CONTRACT_STATIC = {"contract_short64": "A(dy)", "contract_long64": "A*(Psi)"}
+FLUSH_BYTES = 64 << 20     # written before each cold call (L2: 50 MB)
+CONTRACT_IN_FLIGHT = (24, 40)   # the short kernel's kInFlight in copies
+# the cuts of contract_dissect(): (text, replacement) in the source with
+# contract_tile.cuh inlined
+CONTRACT_CUTS = {
+    "contract_short64": {
+        "return": _stop("int F,\n                             int lgP, int lgGroups) {\n"),
+        "loads": ("  return ok ? (double)__ldg(p) : 0.0;",
+                  "  return ok ? (double)(size_t)p : 0.0;"),
+        "v copies": ("        panel::cp_async<8>(Bs",
+                     "        if (J < 0) panel::cp_async<8>(Bs"),
+        "products": ("        panel::dmma_k16(acc[q], a[u], b);",
+                     "        for (int z = 0; z < 4; ++z) acc[q][z] += a[u][z] + b[z];"),
+        "stores": ("if (f < F && g < G) out[", "if (f < 0 && g < G) out["),
+    },
+    "contract_long64": {
+        "return": _stop("int chunk, int lgP, int lgGroups) {\n"),
+        "loads": ("  return ok ? (double)__ldg(p) : 0.0;",
+                  "  return ok ? (double)(size_t)p : 0.0;"),
+        "products": (
+            "    for (int q = 0; q < QW; ++q) panel::dmma_k16(acc[q], a, b[q]);",
+            "    for (int q = 0; q < QW; ++q)\n"
+            "      for (int z = 0; z < 8; ++z) acc[q][z & 3] += a[z] + b[q][z & 3];"),
+        "partials": ("if (j < J && g < G) dst[", "if (j < 0 && g < G) dst["),
+        "grid barrier": ("  cg::this_grid().sync();\n", ""),
+        "chunk sum": ("  for (size_t i = first; i < n; i += threads) {",
+                      "  for (size_t i = first; i < 0; i += threads) {"),
+    },
+}
+
+
+def contract_cases(device, static=None) -> list:
+    """(kernel, label, args) of the two contractions among
+    chip_smoke.df32_cases (``static``: only those with a static M, or only
+    those without)."""
+    return [(name, label, args) for name, label, args in cs.df32_cases(device)
+            if name in CONTRACT and "test_df32" not in label
+            and (static is None or (args[0].dim() == 2) == static)]
+
+
+def with_plan(wrapper, plan):
+    """``wrapper`` launched on ``plan`` (an ops/df32.py ContractPlan)
+    instead of df32.contract_plan's."""
+    def call(M, v):
+        keep = df32.contract_plan
+        df32.contract_plan = lambda *a, **k: plan
+        try:
+            return wrapper(M, v)
+        finally:
+            df32.contract_plan = keep
+    return call
+
+
+def parent_contract(lib: ctypes.CDLL, name: str):
+    """The C entry of another checkout's contraction source built by
+    ``cut`` (the parent design: no plan, no partials) as a wrapper."""
+    fn = getattr(lib, f"{name}_f64")
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(M, v):
+        G, (J, F) = v.shape[0], M.shape[-2:]
+        out = torch.empty((G, F) if name == "contract_short64" else (G, J),
+                          dtype=torch.float64, device=v.device)
+        err = fn(M.data_ptr(), v.data_ptr(), out.data_ptr(), G, J, F,
+                 int(M.dtype == torch.float32), int(M.dim() == 3),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent {name}: CUDA error {err}")
+        return out
+    return call
+
+
+def cold_times(fns, args, flush: torch.Tensor) -> list:
+    """Device ms of one call of each of ``fns`` with the L2 cache cold:
+    before each call ``flush`` (64 MB) is written and the stream held by
+    a spin, so that the call is queued before its start event is reached
+    (median of chip_smoke.REPS calls each, in turns)."""
+    for f in fns:
+        f(*args)
+    times = tuple([] for _ in fns)
+    for _ in range(cs.REPS):
+        for f, acc in zip(fns, times):
+            flush.fill_(1.0)
+            torch.cuda._sleep(1_000_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f(*args)
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end))
+    return [float(np.median(t)) for t in times]
+
+
+def contract_check(device) -> None:
+    """Both contractions' compiler reports, then every df32-phase
+    contraction case and the static paths' tile edges against the plain
+    versions (chip_smoke.df32_check: DF32_TOL, two launches bit for bit),
+    and the static paths on two streams and from two graphs at once
+    (chip_smoke.contract_streams_check)."""
+    ptxas_report(*CONTRACT)
+    cs.contract_edge_phase(device)
+    cs.contract_streams_check(device)
+    for name, label, args in contract_cases(device):
+        _, err, rel = cs.df32_check(name, label, args)
+        cs.log("check", kernel=name, shape=label, max_abs_err=err,
+               max_rel_err=rel, repeat_same=True)
+
+
+def contract_variants(device) -> None:
+    """Each static case under the committed plan beside other plans (the
+    panels a block, the fragments a warp and the groups; also the long
+    one's chunk counts) and copies of the short one's source with other
+    loads in flight a lane (CONTRACT_IN_FLIGHT), each
+    held to the plain version, in turns with the float64 einsum."""
+    copies = {}
+    for name, label, args in contract_cases(device, static=True):
+        G, (J, F) = args[1].shape[0], args[0].shape
+        kind = "short" if name == "contract_short64" else "long"
+        wrapper = getattr(df32, name)
+        base = df32.contract_plan(kind, G, J, F)
+        gf = -(-G // 8)
+        plans = {"committed": base}
+        for frags in (1, 2, 4):
+            for groups in (1, 2, 4, 8):
+                if frags * groups > df32._pow2(gf):
+                    continue
+                for P in (1, 2, 4, 8):
+                    if P * groups > 8:
+                        continue
+                    key = f"P={P} QW={frags} groups={groups}"
+                    if kind == "short":
+                        for stage in (0, 1):
+                            plans[f"{key} stage={stage}"] = df32.plan_of(
+                                kind, G, J, F, P, frags, groups, stage=stage)
+                        continue
+                    for nc in sorted({base.chunks // 2, base.chunks,
+                                      2 * base.chunks}):
+                        if nc >= 1 and P <= 4:
+                            plans[f"{key} chunks={nc}"] = df32.plan_of(
+                                kind, G, J, F, P, frags, groups, nc)
+        want = cs.PLAIN[name](*args)
+        fns = {key: with_plan(wrapper, plan) for key, plan in plans.items()}
+        for n in CONTRACT_IN_FLIGHT if kind == "short" else ():
+            if (name, n) not in copies:
+                copies[name, n] = variant(name, f"f{n}", {"kInFlight": n})
+            fns[f"kInFlight={n}"] = via(copies[name, n], wrapper)
+        for key, fn in fns.items():
+            rel = float((fn(*args) - want).abs().max() / want.abs().max())
+            if not rel <= cs.DF32_TOL:
+                raise AssertionError(f"{name} {key} {label}: {rel}")
+        fns["einsum64"] = cs.einsum64(name, args)
+        ms = dict(zip(fns, cs.graph_times(list(fns.values()), args)))
+        cs.log("variants", kernel=name, shape=label,
+               plan=base._asdict(), ms=ms,
+               **cs.kernel_bound(name, args, want))
+
+
+def contract_dissect(device) -> None:
+    """Each static kernel beside copies with parts cut out (CONTRACT_CUTS,
+    in the source with contract_tile.cuh inlined), in turns, at the static
+    cases."""
+    header = (_build.CSRC / "contract_tile.cuh").read_text()
+    for name in CONTRACT:
+        src = (_build.CSRC / f"{name}.cu").read_text().replace(
+            '#include "contract_tile.cuh"\n', header.replace(
+                "#pragma once\n", ""))
+        libs = {"whole": compiled(name, "whole", src)}
+        for part, (text, replacement) in CONTRACT_CUTS[name].items():
+            key = "empty launch" if part == "return" else f"no {part}"
+            if src.count(text) != 1:
+                raise KeyError(f"{name}: {text!r} found {src.count(text)} "
+                               "times")
+            libs[key] = compiled(name, re.sub(r"\W+", "_", part),
+                                 src.replace(text, replacement))
+        wrapper = getattr(df32, name)
+        for kname, label, args in contract_cases(device, static=True):
+            if kname != name:
+                continue
+            fns = [via(v, wrapper) for v in libs.values()]
+            fns.append(cs.einsum64(name, args))
+            cs.log("dissect", kernel=name, shape=label, ms=dict(zip(
+                [*libs, "einsum64"], cs.graph_times(fns, args))))
+
+
+def contract_times(device, parent=None) -> None:
+    """Every df32-phase contraction case: the committed kernel and, with
+    ``parent``, the parent checkout's kernel, parent, change, change,
+    parent in turns, beside the float64 einsum and the plain version, as
+    device ms from CUDA graphs (warm: M stays in L2 across the replays);
+    the static cases also cold (cold_times)."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
+    for name, label, args in contract_cases(device):
+        fns = {"change": getattr(df32, name)}
+        if parent is not None:
+            old = parent_contract(cut(name, "parent", csrc=parent), name)
+            fns = {"parent": old, "change": fns["change"],
+                   "change again": fns["change"], "parent again": old}
+        fns.update(einsum64=cs.einsum64(name, args), plain=cs.PLAIN[name])
+        want = cs.PLAIN[name](*args)
+        for key in ("parent", "change"):
+            if key in fns:
+                rel = float((fns[key](*args) - want).abs().max()
+                            / want.abs().max())
+                if not rel <= cs.DF32_TOL:
+                    raise AssertionError(f"{name} {key} {label}: {rel}")
+        ms = dict(zip(fns, cs.graph_times(list(fns.values()), args)))
+        cold = None
+        if args[0].dim() == 2:
+            keys = [k for k in fns if k != "plain"]
+            cold = dict(zip(keys, cold_times([fns[k] for k in keys], args,
+                                             flush)))
+        cs.log("contract_times", kernel=name, shape=label,
+               static=args[0].dim() == 2, ms=ms, cold_ms=cold,
+               **cs.kernel_bound(name, args, want))
+
+
 def check(device) -> None:
     _build.build("bmm64", "schur_wwt")
     for name in ("bmm64", "schur_wwt"):
@@ -1431,6 +1670,8 @@ def main() -> int:
             bucket_times(device)
         elif which == "cholinv":
             cholinv_times(device, parent)
+        elif which == "contract":
+            contract_times(device, parent)
         else:
             cs.df32_phase(device)
             cs.pallas_kernel_phase(device)
@@ -1468,6 +1709,13 @@ def main() -> int:
             bucket_variants(device)
         if mode == "dissect":
             bucket_dissect(device)
+    if which in ("all", "contract"):
+        if mode != "dissect":
+            contract_check(device)
+        if mode == "variants":
+            contract_variants(device)
+        if mode == "dissect":
+            contract_dissect(device)
     if which in ("all", "cholinv"):
         tri_check(device, ("chol_inverse_lanes",))
         if mode == "variants":
