@@ -821,6 +821,7 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         stats.heur_found += tres.nheur
         stats.ndirect += tres.ndirect
         stats.nunsolved += tres.nunsolved
+        stats.solve_time += tres.solve_time
 
     if turbo_now:
         tres = _turbo.solve_turbo(
@@ -830,7 +831,6 @@ def solve_misdp(prob: MISDP, settings: Optional[Settings] = None,
         if tres is not None:
             add_turbo_stats(tres)
             stats.wall_time = time.time() - t0
-            stats.solve_time = stats.wall_time
             inc_y = tres.inc_y
             if tres.hit_node_limit or tres.hit_time_limit:
                 status = (SolveStatus.NODE_LIMIT if tres.hit_node_limit

@@ -529,6 +529,7 @@ class TurboResult(NamedTuple):
     nunsolved: int
     hit_node_limit: bool
     hit_time_limit: bool
+    solve_time: float = 0.0   # host wall of the rounds' relaxation solves
 
 
 def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
@@ -574,7 +575,18 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
                      "nodes axis (%d): solving on one device", B,
                      mesh.shape["nodes"])
         mesh = None
-    solve = ipm_solve if mesh is None else ShardedIPM(data, mesh)
+    inner = ipm_solve if mesh is None else ShardedIPM(data, mesh)
+    solve_s = 0.0
+
+    def solve(*args, **kw):
+        """``inner``, its host wall added to ``solve_s``: each call ends in
+        its last flags read, after the device has run its iterations."""
+        nonlocal solve_s
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        solve_s += time.perf_counter() - t
+        return out
+
     ind_pairs = (np.asarray([(l.binvar, l.slackvar)
                              for l in prob.indicators], dtype=np.int32)
                  if prob.indicators else None)
@@ -667,4 +679,5 @@ def solve_turbo(dense: DenseSDPData, prob: MISDP, settings: Settings,
         nunsolved=int(nunsolved),
         hit_node_limit=int(nodes) >= bb.node_limit,
         hit_time_limit=hit_time,
+        solve_time=solve_s,
     )

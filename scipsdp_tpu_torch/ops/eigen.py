@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from scipsdp_tpu_torch.utils import trace
+
 
 def sym(M: torch.Tensor) -> torch.Tensor:
     """Symmetrize the trailing two axes."""
@@ -35,7 +37,9 @@ def eigvalsh(M: torch.Tensor) -> torch.Tensor:
     holds a NaN yields all-NaN eigenvalues instead of a LAPACK error."""
     bad = torch.isnan(M).any(dim=-1).any(dim=-1)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    w = torch.linalg.eigvalsh(torch.where(bad[..., None, None], eye, M))
+    # eigvalsh checks its result on the host: a sync on the card
+    w = trace.sync("eigvalsh", torch.linalg.eigvalsh,
+                   torch.where(bad[..., None, None], eye, M))
     return torch.where(bad[..., None], torch.full_like(w, float("nan")), w)
 
 

@@ -75,6 +75,7 @@ from scipsdp_tpu_torch.ops.eigen import (
     sym,
     ymat,
 )
+from scipsdp_tpu_torch.utils import trace
 from scipsdp_tpu_torch.utils.config import IPMSettings
 from scipsdp_tpu_torch.utils.status import SolverResultStatus
 
@@ -208,10 +209,27 @@ class IPMData:
 def to_device(x, device: torch.device):
     """The one cross-device move of a solve spread over several devices: a
     tensor to ``device`` (itself when it is there already), or numpy as a
-    tensor there."""
-    if isinstance(x, torch.Tensor):
-        return x if x.device == device else x.to(device)
-    return torch.as_tensor(x, device=device)
+    tensor there (see :func:`host_in`).  A tensor's move between the host
+    and a card blocks the host: counted as a sync at site ``move``."""
+    if not isinstance(x, torch.Tensor):
+        return host_in(x, None, device)
+    if x.device == device:
+        return x
+    if (x.device.type == "cpu") != (device.type == "cpu"):
+        return trace.sync("move", x.to, device)
+    return x.to(device)
+
+
+def host_in(x, dtype, device: torch.device):
+    """``x`` as a ``dtype`` tensor on ``device``.  An input in host memory
+    (numpy, a list, a CPU tensor) is a blocking copy on the card: counted
+    as a sync at site ``inputs`` on every device, so that the CPU counts
+    the card's syncs; a tensor already on a card is not."""
+    if isinstance(x, torch.Tensor) and (x.device.type != "cpu"
+                                        or device.type == "cpu"):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return trace.sync("inputs", torch.as_tensor, x, dtype=dtype,
+                      device=device)
 
 
 def _moved(xs, device: torch.device):
@@ -490,7 +508,7 @@ def _start(data: IPMData, b, lb, ub, Gcut, hcut, cutvalid, warm_y,
     dev = data.device
 
     def tens(x, dt=torch.float64):
-        return torch.as_tensor(x, dtype=dt, device=dev)
+        return host_in(x, dt, dev)
 
     b, lb, ub = tens(b), tens(lb), tens(ub)
     B = b.shape[0]
@@ -602,11 +620,16 @@ def ipm_steps(
     buckets, each through :func:`to_device`; ``warm_X`` and ``ip_point``'s
     blocks come on their bucket's device.  On one device nothing moves."""
     _check_supported(settings)
+    # the request's set-up: its inputs on the device, presolve, the start
+    # point and its evaluation, up to the first flags
+    setup = trace.span("ipm.setup", B=b.shape[0], phase32=settings.phase32,
+                       buckets=tuple((a.shape[0], a.shape[-1])
+                                     for a in data.A))
     dtype = torch.float64
     dev = data.device
 
     def tens(x, dt=dtype):
-        return torch.as_tensor(x, dtype=dt, device=dev)
+        return host_in(x, dt, dev)
 
     b, Gall, hall, pre, y0, wm = _start(data, b, lb, ub, Gcut, hcut,
                                         cutvalid, warm_y, warm_mask, settings)
@@ -627,7 +650,7 @@ def ipm_steps(
 
     def tensb(t, x):
         """A per-bucket input as float64 on bucket t's device."""
-        return torch.as_tensor(x, dtype=dtype, device=data.place(t))
+        return host_in(x, dtype, data.place(t))
 
     pad_diag, pad_outer = _pad_masks(data)
     eyen = tuple(torch.eye(data.A[t].shape[-1], dtype=dtype,
@@ -673,7 +696,9 @@ def ipm_steps(
             to the largest |eigenvalue|; the padding keeps the scaled
             identity."""
             pad = eyen[t][None, None] * xis[t]
-            lam, V = torch.linalg.eigh(torch.where(pad_outer[t], Mt, pad))
+            # eigh checks its result on the host: a sync on the card
+            lam, V = trace.sync("eigh", torch.linalg.eigh,
+                                torch.where(pad_outer[t], Mt, pad))
             lfloor = floor_rel * torch.clamp_min(
                 lam.abs().amax(dim=-1, keepdim=True), 1.0)
             lam = torch.maximum(lam, lfloor)
@@ -1510,6 +1535,7 @@ def ipm_steps(
     track_pre = settings.preopt_gap > 0.0
     y_pre, X_pre = st0.y, st0.X
     has_pre = torch.zeros((B,), dtype=torch.bool, device=dev)
+    setup.end()
     while st.it < settings.max_iters:
         # lockstep reads these once per iteration: the batch's done mask,
         # and in a float32 tier the choice of tier in the same transfer
@@ -1518,15 +1544,18 @@ def ipm_steps(
             else st.done.all().reshape(1))
         if all_done:
             break
-        f64_iters += not use32
-        was_done = st.done
-        st, ev = body(st, ev, use32)
-        if track_pre:
-            hit = ~has_pre & ~was_done & (ev.relgap <= settings.preopt_gap)
-            y_pre = torch.where(hit[:, None], st.y, y_pre)
-            X_pre = tuple(torch.where(into(t, hit[:, None, None, None]),
-                                      st.X[t], X_pre[t]) for t in bidx)
-            has_pre = has_pre | hit
+        # issuing one iteration; the span ends before the next yield
+        with trace.span("ipm.iter", it=st.it, use32=use32):
+            f64_iters += not use32
+            was_done = st.done
+            st, ev = body(st, ev, use32)
+            if track_pre:
+                hit = (~has_pre & ~was_done
+                       & (ev.relgap <= settings.preopt_gap))
+                y_pre = torch.where(hit[:, None], st.y, y_pre)
+                X_pre = tuple(torch.where(into(t, hit[:, None, None, None]),
+                                          st.X[t], X_pre[t]) for t in bidx)
+                has_pre = has_pre | hit
 
     converged = st.converged | (ev.conv & ~pre.conflict & ~pre.allfixed)
     yh = torch.where(pre.fix, pre.fixval, st.y)
@@ -1579,21 +1608,24 @@ def lockstep(steppers, combine):
     (the iteration's one host sync, whatever the number of steppers), and
     each stepper is sent the global ``(all_done, use32)``.  The steppers
     stop together (they share ``max_iters`` and the flags); returns their
-    SolveOutputs in order."""
-    msg = None
-    while True:
-        flags, outs = [], []
-        for s in steppers:
-            try:
-                flags.append(s.send(msg))
-            except StopIteration as stop:
-                outs.append(stop.value)
-        if outs:
-            if flags:
-                raise RuntimeError("lockstep: steppers stopped apart")
-            return outs
-        vals = combine(flags).tolist()         # host read: the flags
-        msg = (bool(vals[0]), len(vals) > 1 and bool(vals[1]))
+    SolveOutputs in order.  The call is one request: one ``ipm.solve``
+    span, however many steppers."""
+    with trace.span(trace.SOLVE, steppers=len(steppers)):
+        msg = None
+        while True:
+            flags, outs = [], []
+            for s in steppers:
+                try:
+                    flags.append(s.send(msg))
+                except StopIteration as stop:
+                    outs.append(stop.value)
+            if outs:
+                if flags:
+                    raise RuntimeError("lockstep: steppers stopped apart")
+                return outs
+            # host read: the flags
+            vals = trace.sync("flags", combine(flags).tolist)
+            msg = (bool(vals[0]), len(vals) > 1 and bool(vals[1]))
 
 
 def ipm_solve(

@@ -338,7 +338,9 @@ def test_turbo_drops_a_mesh_the_batch_does_not_fit(two_block, caplog,
             3, device="cpu"))
     assert "not a multiple of the mesh's nodes axis (3)" in caplog.text
     np.testing.assert_array_equal(got.inc_y, want.inc_y)
-    assert got._replace(inc_y=None) == want._replace(inc_y=None)
+    # every field but the solves' host wall, a timing
+    assert got._replace(inc_y=None, solve_time=0.0) == \
+        want._replace(inc_y=None, solve_time=0.0)
 
 
 def _cls():
