@@ -85,6 +85,8 @@ from scipsdp_tpu_torch.utils.status import SolverResultStatus
 
 INF_THRESH = 1e19  # values beyond this are treated as infinite
 _PROBE_MULTS = (1.0, 2.0, 4.0, 8.0, 16.0)
+SCHUR_REFINE64 = 2  # float64 residual passes on the Schur solve where the
+                    # penalty variable is free
 
 
 def _pallas(A: torch.Tensor, settings: IPMSettings) -> bool:
@@ -630,8 +632,10 @@ def ipm_steps(
     blocks come on their bucket's device.  On one device nothing moves."""
     _check_supported(settings)
     # the request's set-up: its inputs on the device, presolve, the start
-    # point and its evaluation, up to the first flags
-    setup = trace.span("ipm.setup", B=b.shape[0], phase32=settings.phase32,
+    # point and its evaluation, up to the first flags; attributes the
+    # batch B, the Schur size mp and the buckets' (K, n), known on the host
+    setup = trace.span("ipm.setup", B=b.shape[0], mp=data.nvars + 1,
+                       phase32=settings.phase32,
                        buckets=tuple((a.shape[0], a.shape[-1])
                                      for a in data.A))
     dtype = torch.float64
@@ -1197,7 +1201,21 @@ def ipm_steps(
         M = M + pre.fix.to(dtp)[:, :, None] * eye[None]
         chol_reg = max(settings.chol_reg, 1e-9) if f32 else settings.chol_reg
         reg = chol_reg * (1.0 + torch.amax(M.abs(), dim=(1, 2)))
-        M = M + reg[:, None, None] * eye[None]
+        if f32:
+            M = M + reg[:, None, None] * eye[None]
+        else:
+            # where the penalty variable is free (the probe and penalty
+            # modes), each row's shift is chol_reg * (1 + its own
+            # diagonal), elsewhere the largest entry's on every row.  With
+            # r free its bound barrier xlb/slb grows without limit as
+            # r -> 0 (~1e17), and X S^-1 along a box's fixed null
+            # directions (~1e10); a shift scaled by the largest entry
+            # swamps every other row of the Newton system and the primal
+            # residual stalls
+            dM = torch.diagonal(M, dim1=1, dim2=2)
+            shift = torch.where(pre.fix[:, -1:], reg[:, None],
+                                chol_reg * (1.0 + dM))
+            dM.add_(shift)
         if f32:
             # Jacobi equilibration: near convergence the Schur diagonal
             # spans many orders of magnitude; cond(D M D) << cond(M) lets
@@ -1221,6 +1239,18 @@ def ipm_steps(
 
         def solve_dy(rhs):
             dy = torch.einsum("xij,xj->xi", Minv, rhs)
+            if not f32:
+                # where the penalty variable is free, residual passes
+                # against the unshifted system: near a box with no
+                # interior M's rows span ~1e17, the explicit inverse's
+                # product leaves a residual that the Newton step carries
+                # into the primal residual, and the solve stalls with the
+                # gap closed and the primal residual above feastol
+                rfree = ~pre.fix[:, -1:]
+                for _ in range(SCHUR_REFINE64):
+                    res = rhs - torch.einsum("xij,xj->xi", M, dy) + shift * dy
+                    dy = torch.where(
+                        rfree, dy + torch.einsum("xij,xj->xi", Minv, res), dy)
             if not lite:
                 return dy
             rhs64 = torch.where(pre.fix, 0.0, rhs.to(dtype))
@@ -1497,8 +1527,15 @@ def ipm_steps(
         conv = ev_n.conv
         # stall detection: instances making no progress burn the whole
         # batch's wall clock (the loop runs until ALL are done) — declare
-        # them failed early and let the recovery ladder handle them
-        merit = ev_n.relgap + ev_n.pinf + ev_n.dinf
+        # them failed early and let the recovery ladder handle them.  The
+        # merit's gap is relative to the objective without the penalty
+        # term (the same as the relative gap where the penalty variable is
+        # fixed at 0): while r is large Gamma r inflates |dobj|, the first
+        # iterates' relative gap reads small, and a penalty solve that is
+        # converging reads as stalled
+        yh_n = torch.where(pre.fix, pre.fixval, new.y)
+        dobj_n = (b * yh_n).sum(dim=1) - b[:, -1] * yh_n[:, -1]
+        merit = ev_n.gap / (1.0 + dobj_n.abs()) + ev_n.pinf + ev_n.dinf
         improved = merit < settings.stall_factor * new.best_merit
         best_merit = torch.where(improved, merit, new.best_merit)
         stall_cnt = torch.where(improved | new.done, 0, new.stall + 1)

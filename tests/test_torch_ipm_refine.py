@@ -56,9 +56,11 @@ def refine(step_rule, **kw):
 
 
 def _compare(name, B, step_rule, mode="direct", seed=1, port=DF32, data=None,
-             **kw):
+             where_settled=False, **kw):
     """The port (settings ``port`` over JAX's) against JAX on the same
-    boxes; ``data`` replaces the instance's (JAX, port) IPMData."""
+    boxes; ``data`` replaces the instance's (JAX, port) IPMData.  With
+    ``where_settled`` the statuses and bounds are compared only where JAX
+    settles, and the iterations not at all."""
     prob, jdata, tdata = problem(name)
     if data is not None:
         jdata, tdata = data
@@ -66,9 +68,12 @@ def _compare(name, B, step_rule, mode="direct", seed=1, port=DF32, data=None,
     jkw = refine(step_rule, **kw)
     ref = jax_solve(jdata, b, lb, ub, jkw)
     out = torch_solve(tdata, b, lb, ub, jkw | port)
-    np.testing.assert_array_equal(out["status"], ref["status"])
-    assert abs(out["iters"] - int(ref["iters"])) <= ITERS_TOL
     ok = np.isin(ref["status"], SETTLED)
+    if where_settled:
+        np.testing.assert_array_equal(out["status"][ok], ref["status"][ok])
+    else:
+        np.testing.assert_array_equal(out["status"], ref["status"])
+        assert abs(out["iters"] - int(ref["iters"])) <= ITERS_TOL
     d, dr = out["dobj"][ok], ref["dobj"][ok]
     assert np.all(np.abs(d - dr) <= DOBJ_BAR * (1.0 + np.abs(dr))), (d, dr)
     return out, ref
@@ -85,11 +90,19 @@ def test_small_families(step_rule, name, B):
 @pytest.mark.parametrize("mode", ["direct", "probe", "penalty"])
 def test_penalty_modes(mode):
     """The three modes of the penalty variable r.  The Gamma=1e3 penalty
-    solve FAILs every slot in the refine tier, in JAX as in the port: each
-    stalls in the tier, escalates to float64 and stalls again there."""
-    out, _ = _compare("cls", 8, "probe", mode=mode, seed=3)
+    solve stalls in the refine tier, in JAX as in the port, and escalates
+    to float64.  There JAX shifts the Schur system by its largest entry
+    (r's bound barrier, without limit as r -> 0), stalls again and FAILs
+    every slot; the port shifts each row by its own diagonal where r is
+    free and solves most: in that mode the port is held to JAX where JAX
+    settles."""
+    out, ref = _compare("cls", 8, "probe", mode=mode, seed=3,
+                        where_settled=mode == "penalty")
     if mode != "direct":
         assert (out["r"] >= -1e-6).all()
+    if mode == "penalty":
+        assert (ref["status"] == 5).all()          # FAILED
+        assert (out["status"] == 1).sum() >= 4, out["status"]
 
 
 def test_cls_32():

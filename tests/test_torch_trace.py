@@ -90,7 +90,8 @@ def test_span_tree_of_one_solve(cls):
     assert out.iters > 0
     assert [sp.attrs["it"] for sp in iters] == list(range(out.iters))
     assert all(sp.attrs["use32"] is False for sp in iters)
-    assert setup.attrs == {"B": B, "buckets": ((1, 9),), "phase32": "off"}
+    assert setup.attrs == {"B": B, "mp": prob.nvars + 1, "buckets": ((1, 9),),
+                           "phase32": "off"}
     assert solve.attrs == {"steppers": 1}
     # the flags once before each iteration and once to stop; the numpy
     # b, lb, ub copied in; the CPU's step rule (eigh) and the presolve
